@@ -4,18 +4,28 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``open_gpu_kernel_modules_tpu_torch/ops/
-csrc`` with nvcc, holds each kernel against its plain PyTorch version at the
-shapes Llama-3-8B gives it, then drives the port's main path at full
-Llama-3-8B width (random weights from a seed):
+csrc`` with nvcc (and the native UVM engine with ``make -C native``, at the
+same time), holds each kernel against its plain PyTorch version at the
+shapes Llama-3-8B gives it, then drives the port's paths at full Llama-3-8B
+width (random weights from a seed):
 
-1. identify the card, build the kernels;
+1. identify the card, build the kernels and the native library;
 2. paged decode (B1) against its reference, bf16 and fp32, ragged lengths;
-3. flash attention (B2) against its reference, causal and full, odd length,
-   both layouts;
-4. serving: ``generate`` on 8 prompts of 512 tokens, 32 new tokens each,
+3. flash attention (B2, ``impl="grid"``) against its reference, causal and
+   full, odd length, both layouts;
+4. row-resident flash attention (B3, ``impl="rows"``) on B2's cases plus a
+   short row that fits shared memory whole; its entry point driven once at
+   its two main shapes (S=256 and S=2048);
+5. serving: ``generate`` on 8 prompts of 512 tokens, 32 new tokens each,
    through the paged-decode kernel; the last decode logits are held against
    a dense ``forward`` over the same tokens;
-5. ``forward(use_flash=True)`` at S=2048 against ``forward(use_flash=False)``.
+6. ``forward(use_flash=True)`` at S=2048 against ``forward(use_flash=False)``;
+7. tiered serving (BASELINE config #4): ``TieredKVCache`` over the UVM
+   engine, 16 sequences of 512-token prompts (max_len 576) in groups of 4,
+   ``prefill_group`` then ``decode_rounds`` (8 tokens a turn, 2 turns), at
+   ``oversub`` 1 and then 4; the greedy tokens of the two runs must be
+   equal, and equal to a dense ``generate`` of the first group; the
+   ``oversub=4`` run must park written pages in the victim ring.
 
 Prints one ``{"kernels": [...]}`` line with each kernel's launches on the
 main path, its error against the plain version, its time, its bound, the
@@ -28,8 +38,10 @@ Imports nothing of JAX.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
+import threading
 import time
 
 import torch
@@ -43,6 +55,9 @@ PEAK_FLOPS = {torch.bfloat16: 989e12,     # dense tensor-core bf16
 # the order of sums.
 TOL = {torch.bfloat16: (2e-2, 1.6e-2), torch.float32: (1e-4, 0.0)}
 SEED = 0
+# The native engine's fake device arena (TPUMEM_FAKE_HBM_MB, default 128):
+# one full-width group faults about 300 MB through it.
+ARENA_MB = 1024
 
 
 def check(ok: bool, what: str) -> None:
@@ -131,6 +146,7 @@ def reset_counts() -> None:
                                                        paged_attention)
     paged_attention.launches = 0
     flash_attention.launches = 0
+    flash_attention.rows_launches = 0
 
 
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -147,6 +163,7 @@ def within_tol(out: torch.Tensor, ref: torch.Tensor) -> bool:
 
 def phase_build():
     from open_gpu_kernel_modules_tpu_torch.ops import _build
+    from open_gpu_kernel_modules_tpu_torch.runtime import native
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -154,8 +171,24 @@ def phase_build():
     log(f"card: {smi}  ({torch.cuda.get_device_name(0)}, torch "
         f"{torch.__version__}, CUDA {torch.version.cuda})")
     t0 = time.perf_counter()
-    logs = _build.build_all()
-    log(f"build: {time.perf_counter() - t0:.1f} s")
+    # The native library builds with make while nvcc builds the kernels.
+    native_err = []
+
+    def make():
+        try:
+            native.build_native()
+        except Exception as e:          # reported after the join
+            native_err.append(e)
+    maker = threading.Thread(target=make)
+    maker.start()
+    try:
+        logs = _build.build_all()
+    finally:
+        maker.join()
+    if native_err:
+        raise native_err[0]
+    log(f"build: {time.perf_counter() - t0:.1f} s (kernels and "
+        f"native/build/libtpurm.so)")
     for name, text in logs.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
@@ -236,20 +269,26 @@ def phase_paged():
 
 # ------------------------------------------------------------------ phase 3
 
-def flash_case(b, h, s, d, causal, layout, dtype, gen, copies=2):
+def flash_case(b, h, s, d, causal, layout, dtype, gen, copies=2,
+               impl="grid"):
     from open_gpu_kernel_modules_tpu_torch.ops.flash_attention import (
         flash_attention, flash_attention_reference)
     shape = (b, h, s, d) if layout == "bhsd" else (b, s, h, d)
     args = [tuple(torch.randn(shape, generator=gen, device="cuda").to(dtype)
                   for _ in range(3)) for _ in range(copies)]
-    kw = dict(causal=causal, layout=layout)
+    kw = dict(causal=causal, layout=layout, impl=impl)
+    counts = (flash_attention.launches, flash_attention.rows_launches)
     out = flash_attention(*args[0], **kw)
-    ref = flash_attention_reference(*args[0], **kw)
+    rose = (flash_attention.launches - counts[0],
+            flash_attention.rows_launches - counts[1])
+    check(rose == ((0, 1) if impl == "rows" else (1, 0)),
+          f"flash impl={impl} moved the (grid, rows) counts by {rose}")
+    ref = flash_attention_reference(*args[0], causal=causal, layout=layout)
     torch.cuda.synchronize()
     check(bool(torch.isfinite(out).all()), "flash: non-finite output")
     err = max_err(out, ref)
-    check(within_tol(out, ref), f"flash {dtype} causal={causal} {layout} "
-          f"S={s}: max err {err} beyond (atol, rtol) {TOL[dtype]}")
+    check(within_tol(out, ref), f"flash {impl} {dtype} causal={causal} "
+          f"{layout} S={s}: max err {err} beyond (atol, rtol) {TOL[dtype]}")
 
     item = torch.tensor([], dtype=dtype).element_size()
     pairs = s * (s + 1) // 2 if causal else s * s
@@ -259,8 +298,8 @@ def flash_case(b, h, s, d, causal, layout, dtype, gen, copies=2):
     host = []
     ms = cuda_ms([lambda a=a: flash_attention(*a, **kw) for a in args],
                  host=host)
-    plain = cuda_ms([lambda a=a: flash_attention_reference(*a, **kw)
-                     for a in args], iters=5)
+    plain = cuda_ms([lambda a=a: flash_attention_reference(
+        *a, causal=causal, layout=layout) for a in args], iters=5)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     if layout == "bhsd":
         lib_args = args
@@ -269,24 +308,64 @@ def flash_case(b, h, s, d, causal, layout, dtype, gen, copies=2):
     lib = cuda_ms([lambda a=a: sdpa(*a, is_causal=causal) for a in lib_args])
     rec = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
                bound_by=by, library_ms=lib)
-    log(f"B2 flash {str(dtype)[6:]} B={b} H={h} S={s} D={d} "
+    log(f"{'B3 flash rows' if impl == 'rows' else 'B2 flash'} "
+        f"{str(dtype)[6:]} B={b} H={h} S={s} D={d} "
         f"causal={causal} {layout}: " + json.dumps(rec)
         + f"; host enqueue {host[0]:.4f} ms/call")
     return rec
 
 
+# B2's cases (b, h, s, d, causal, layout, dtype); the first is the main
+# shape, the S=2048 prefill of one Llama-3-8B layer.
+FLASH_CASES = [(1, 32, 2048, 128, True, "bshd", torch.bfloat16),
+               (1, 32, 2048, 128, False, "bshd", torch.bfloat16),
+               (1, 32, 1000, 128, True, "bshd", torch.bfloat16),
+               (2, 8, 1000, 64, False, "bhsd", torch.bfloat16),
+               (1, 8, 1000, 128, True, "bhsd", torch.float32),
+               (1, 8, 333, 64, False, "bshd", torch.float32)]
+# B3's own short case: a row that fits shared memory whole.
+ROWS_SHORT = (4, 32, 256, 128, True, "bshd", torch.bfloat16)
+
+
 def phase_flash():
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
-    main = flash_case(1, 32, 2048, 128, True, "bshd", torch.bfloat16, gen)
-    flash_case(1, 32, 2048, 128, False, "bshd", torch.bfloat16, gen)
-    flash_case(1, 32, 1000, 128, True, "bshd", torch.bfloat16, gen)
-    flash_case(2, 8, 1000, 64, False, "bhsd", torch.bfloat16, gen)
-    flash_case(1, 8, 1000, 128, True, "bhsd", torch.float32, gen)
-    flash_case(1, 8, 333, 64, False, "bshd", torch.float32, gen)
-    return main
+    recs = [flash_case(*c, gen) for c in FLASH_CASES]
+    return recs[0]
 
 
 # ------------------------------------------------------------------ phase 4
+
+def phase_flash_rows():
+    """B3 against its reference on B2's cases and its short case; then its
+    entry point, counted, once at each of its two main shapes."""
+    from open_gpu_kernel_modules_tpu_torch.ops.flash_attention import (
+        flash_attention, rows_segment_tokens)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    for b, h, s, d, causal, layout, dtype in [ROWS_SHORT] + FLASH_CASES:
+        seg = rows_segment_tokens(s, s, d, dtype, causal)
+        log(f"B3 S={s} D={d} {str(dtype)[6:]}: {seg} keys per segment, "
+            f"{-(-s // seg)} segment(s) for the longest row")
+    check(rows_segment_tokens(256, 256, 128, torch.bfloat16, True) >= 256,
+          "B3: the short row does not fit shared memory whole")
+    check(rows_segment_tokens(2048, 2048, 128, torch.bfloat16, True) < 2048,
+          "B3: the S=2048 row was expected to need segments")
+    recs = [flash_case(*c, gen, impl="rows") for c in [ROWS_SHORT]
+            + FLASH_CASES]
+
+    reset_counts()
+    for b, h, s, d, causal, layout, dtype in (ROWS_SHORT, FLASH_CASES[0]):
+        q, k, v = (torch.randn((b, s, h, d), generator=gen,
+                               device="cuda").to(dtype) for _ in range(3))
+        out = flash_attention(q, k, v, causal=causal, impl="rows")
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(out).all()), "B3: non-finite output")
+    launches = flash_attention.rows_launches
+    check(launches == 2, f"B3 launched {launches} times, expected 2")
+    check(flash_attention.launches == 0, "impl='rows' launched B2")
+    return recs[1], launches
+
+
+# ------------------------------------------------------------------ phase 5
 
 def logits_tol(ref: torch.Tensor) -> float:
     """bf16 through 32 layers: both paths round every activation to bf16
@@ -350,7 +429,7 @@ def phase_serving(cfg, params, gen):
     return launches
 
 
-# ------------------------------------------------------------------ phase 5
+# ------------------------------------------------------------------ phase 6
 
 def phase_flash_forward(cfg, params, gen):
     from open_gpu_kernel_modules_tpu_torch.models import llama
@@ -382,15 +461,178 @@ def phase_flash_forward(cfg, params, gen):
     return launches
 
 
+# ------------------------------------------------------------------ phase 7
+
+# max_len 576 (9 pages of 64) makes the 4x-oversubscribed slot pool hold
+# exactly one group (36 slots), so every activation evicts the previous
+# group's written pages into the victim ring.  At max_len 1024 the pool
+# (64 slots) always keeps enough clean slots for a 36-page group, and the
+# clean-first eviction order never parks a written page: no flush at all.
+TIERED = dict(seqs=16, prompt=512, max_len=576, page=64, group=4,
+              tokens_per_turn=8, turns=2)
+
+
+def tiered_run(cfg, params, prompts, oversub):
+    """One tiered serving run: prefill every group, then decode_rounds.
+    Returns (last tokens, stats, record of host-side measurements)."""
+    from open_gpu_kernel_modules_tpu_torch.models import serving
+    from open_gpu_kernel_modules_tpu_torch.uvm import fault_stats
+    t = TIERED
+    groups = [list(range(i, i + t["group"]))
+              for i in range(0, t["seqs"], t["group"])]
+    t0 = time.perf_counter()
+    cache = serving.TieredKVCache(cfg, t["seqs"], t["max_len"],
+                                  page_size=t["page"], oversub=oversub)
+    setup_s = time.perf_counter() - t0
+    # Host time of every activation and prefetch, of the backing's page
+    # reads inside them and of the UVM fault pass inside those; and whether
+    # the decode queued before a prefetch was still running when the
+    # prefetch returned (the copy then ran fully under the decode).
+    act_ms, commit_ms, pre_ms, read_ms, fault_ms, under = ([] for _ in
+                                                           range(6))
+    activate, prefetch = cache.activate, cache.prefetch
+    backing = cache.backing
+    read_pages, fault_pages = backing.read_pages, backing._ring_fault_pages
+
+    def timed(fn, into):
+        def call(*a, **k):
+            t1 = time.perf_counter()
+            out = fn(*a, **k)
+            into.append((time.perf_counter() - t1) * 1e3)
+            return out
+        return call
+
+    def timed_activate(*a, staged=None, **k):
+        t1 = time.perf_counter()
+        view = activate(*a, staged=staged, **k)
+        ms = (time.perf_counter() - t1) * 1e3
+        (act_ms if staged is None else commit_ms).append(ms)
+        return view
+
+    def timed_prefetch(*a, **k):
+        busy = torch.cuda.Event()
+        busy.record()
+        t1 = time.perf_counter()
+        staged = prefetch(*a, **k)
+        pre_ms.append((time.perf_counter() - t1) * 1e3)
+        under.append(not busy.query())
+        return staged
+
+    cache.activate, cache.prefetch = timed_activate, timed_prefetch
+    backing.read_pages = timed(read_pages, read_ms)
+    backing._ring_fault_pages = timed(fault_pages, fault_ms)
+    try:
+        t0 = time.perf_counter()
+        for g in groups:
+            serving.prefill_group(cfg, params, cache, g, prompts[g])
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        before = dict(cache.stats)
+        for samples in (act_ms, commit_ms, read_ms, fault_ms):
+            del samples[:]
+        faults = fault_stats()
+        total, secs = serving.decode_rounds(
+            cfg, params, cache, groups, tokens_per_turn=t["tokens_per_turn"],
+            turns=t["turns"])
+        stats = dict(cache.stats)
+        after = fault_stats()
+        rec = dict(
+            oversub=oversub, n_slots=cache.n_slots, setup_s=setup_s,
+            prefill_s=prefill_s, decode_tokens=total, decode_s=secs,
+            tok_per_s=total / secs,
+            decode_upload_bytes=stats["upload_bytes"] - before["upload_bytes"],
+            decode_uploads=stats["uploads"] - before["uploads"],
+            unstaged_activations=len(act_ms),
+            unstaged_activate_host_ms_mean=sum(act_ms) / max(len(act_ms), 1),
+            staged_activations=len(commit_ms),
+            staged_activate_host_ms_mean=sum(commit_ms) / max(
+                len(commit_ms), 1),
+            prefetch_host_ms_mean=sum(pre_ms) / max(len(pre_ms), 1),
+            page_reads=len(read_ms), read_pages_ms_mean=sum(read_ms) / max(
+                len(read_ms), 1),
+            fault_pass_ms_mean=sum(fault_ms) / max(len(fault_ms), 1),
+            uvm_cpu_faults=after.faults_cpu - faults.faults_cpu,
+            uvm_device_faults=after.faults_device - faults.faults_device,
+            uvm_migrated_bytes=after.migrated_bytes - faults.migrated_bytes,
+            prefetches_under_decode=f"{sum(under)} of {len(under)}",
+            memring=cache.backing.ring is not None)
+        tokens = cache.last_token.copy()
+    finally:
+        cache.close()
+    return tokens, stats, rec
+
+
+def phase_tiered(cfg, params, gen):
+    """Config #4 at full width: the same 16 prompts through the tiered cache
+    at oversub 1 and then 4 (the first closed before the second starts)."""
+    from open_gpu_kernel_modules_tpu_torch.models import serving
+    from open_gpu_kernel_modules_tpu_torch.ops import (flash_attention,
+                                                       paged_attention)
+    t = TIERED
+    prompts = torch.randint(0, cfg.vocab_size, (t["seqs"], t["prompt"]),
+                            generator=gen, device="cuda")
+    log(f"tiered: native arena TPUMEM_FAKE_HBM_MB="
+        f"{os.environ['TPUMEM_FAKE_HBM_MB']}; {t}")
+    torch.cuda.synchronize()
+    reset_counts()
+    runs = {o: tiered_run(cfg, params, prompts, o) for o in (1, 4)}
+    launches = paged_attention.launches
+    expect = (cfg.num_layers * t["turns"] * (t["seqs"] // t["group"]) *
+              t["tokens_per_turn"] * 2)
+    check(launches == expect,
+          f"tiered: paged decode launched {launches} times, expected {expect}")
+    check(flash_attention.launches == 0 and flash_attention.rows_launches == 0,
+          "tiered serving launched a flash kernel")
+    for o, (tokens, stats, rec) in runs.items():
+        log(f"tiered oversub={o}: " + json.dumps(rec))
+        log(f"tiered oversub={o} stats: " + json.dumps(stats))
+        check(bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()),
+              "tiered: token out of vocabulary")
+    check(bool((runs[1][0] == runs[4][0]).all()),
+          f"tiered: oversub 1 and 4 disagree: {runs[1][0]} vs {runs[4][0]}")
+    check(runs[4][1]["flushes"] > 0, "tiered: oversub=4 never flushed")
+    check(runs[1][1]["flushes"] == 0, "tiered: oversub=1 flushed")
+
+    # The first group through the dense path: prefill + 16 greedy steps
+    # give the token the tiered runs ended on.
+    n_new = t["tokens_per_turn"] * t["turns"] + 1
+    dense, cache, _ = serving.generate(cfg, params, prompts[:t["group"]],
+                                       n_new)
+    want = dense[:, -1].cpu().numpy()
+    log(f"tiered: last tokens {runs[4][0].tolist()}; dense generate of "
+        f"group 0 ends on {want.tolist()}")
+    check(bool((runs[4][0][:t["group"]] == want).all()),
+          "tiered tokens disagree with dense generate")
+
+    # Kernel time of one turn (tokens_per_turn greedy steps at the group's
+    # batch, on that dense cache), against the host clock of the turns.
+    tok = dense[:, -1].to(torch.int32)
+    turn_ms, _ = device_kernel_ms(lambda: serving.decode_scan(
+        cfg, params, tok, cache, t["tokens_per_turn"]))
+    if turn_ms is None:
+        log("tiered: device busy share not measured (no device time in "
+            "the profiler trace)")
+    else:
+        for o, (_, _, rec) in runs.items():
+            turns = t["turns"] * (t["seqs"] // t["group"])
+            log(f"tiered oversub={o}: decode kernels {turn_ms:.3f} ms a turn "
+                f"(profiler); device busy share of decode_rounds about "
+                f"{turns * turn_ms / (rec['decode_s'] * 1e3):.3f}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    # Read by the native engine when it loads (it has not yet).
+    os.environ["TPUMEM_FAKE_HBM_MB"] = str(ARENA_MB)
     from open_gpu_kernel_modules_tpu_torch.models import llama
 
     smi = phase_build()
     b1 = phase_paged()
     b2 = phase_flash()
+    b3, b3_launches = phase_flash_rows()
 
     cfg = llama.LlamaConfig.llama3_8b()
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
@@ -402,6 +644,7 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s")
     b1_launches = phase_serving(cfg, params, gen)
     b2_launches = phase_flash_forward(cfg, params, gen)
+    b1_launches += phase_tiered(cfg, params, gen)
 
     kernels = [
         dict(name="paged_decode", route="cuda",
@@ -412,6 +655,10 @@ def main() -> int:
              source="open_gpu_kernel_modules_tpu_torch/ops/csrc/flash_attn.cu",
              replaces="open_gpu_kernel_modules_tpu/ops/flash_attention.py:103",
              launches=b2_launches, **b2),
+        dict(name="flash_rows", route="cuda",
+             source="open_gpu_kernel_modules_tpu_torch/ops/csrc/flash_rows.cu",
+             replaces="open_gpu_kernel_modules_tpu/ops/flash_attention.py:37",
+             launches=b3_launches, **b3),
     ]
     log(json.dumps({"kernels": kernels}))
     log(smi)

@@ -7,10 +7,13 @@ to find:
 
 - ``models.llama``   — the Llama decoder (plain PyTorch, stacked [L, ...]
   layer tensors, a Python loop over layers);
-- ``models.serving`` — the paged KV cache, prefill, greedy decode;
+- ``models.serving`` — the paged KV cache, prefill, greedy decode, and the
+  oversubscribed tiered KV cache over the native UVM engine;
 - ``models.convert`` — JAX parameter trees (as numpy) -> torch tensors;
 - ``ops``            — hand-written CUDA kernels for Hopper (``ops/csrc``),
-  each beside its plain PyTorch version.
+  each beside its plain PyTorch version;
+- ``uvm``, ``runtime`` — the port's own ctypes bindings to the native
+  engine (``native/``, ``libtpurm.so``), the parts the tiered cache needs.
 
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"`` (see ``device.resolve``).

@@ -1,4 +1,4 @@
-"""Model families served by the port (Llama; dense serving)."""
+"""Model families served by the port (Llama; dense and tiered serving)."""
 
 from .llama import (
     LlamaConfig,

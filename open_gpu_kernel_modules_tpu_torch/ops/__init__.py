@@ -1,6 +1,7 @@
 """CUDA kernels for Hopper, each beside its plain PyTorch version.
 
-- flash_attention — blockwise online-softmax attention (the prefill forward)
+- flash_attention — blockwise online-softmax attention (the prefill forward):
+  the grid kernel and the row-resident one (``impl="rows"``)
 - paged_attention — block-paged decode attention (every decode step)
 """
 

@@ -26,7 +26,7 @@ from typing import Dict, Sequence
 _OPS = Path(__file__).resolve().parent
 CSRC = _OPS / "csrc"
 BUILD_DIR = _OPS.parent / "_build"
-SOURCES = ("paged_decode", "flash_attn")
+SOURCES = ("paged_decode", "flash_attn", "flash_rows")
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

@@ -1,13 +1,15 @@
-"""Flash attention: the CUDA kernel for Hopper and its plain PyTorch version.
+"""Flash attention: CUDA kernels for Hopper and their plain PyTorch version.
 
-Port of the JAX ``ops/flash_attention.py``.  ``flash_attention`` launches
-``csrc/flash_attn.cu`` (which replaces the TPU kernel ``_flash_kernel``) on
-a CUDA tensor and runs ``flash_attention_reference`` on a CPU tensor.  There
-is no fallback on CUDA: the kernel runs or the call raises.
+Port of the JAX ``ops/flash_attention.py``.  On a CUDA tensor
+``flash_attention`` launches ``csrc/flash_attn.cu`` (which replaces the TPU
+kernel ``_flash_kernel``, ``impl="grid"``, the default) or
+``csrc/flash_rows.cu`` (which replaces ``_flash_kernel_rows``,
+``impl="rows"``); on a CPU tensor it runs ``flash_attention_reference``.
+There is no fallback on CUDA: the chosen kernel runs or the call raises.
 
 The TPU version's block sizes (``blk_q``/``blk_k``) and ``interpret`` flag
-are Pallas tiling and emulation knobs with no counterpart here: the kernel
-tiles by 64 and masks the ragged edge itself, so nothing is padded.
+are Pallas tiling and emulation knobs with no counterpart here: the kernels
+tile by 64 and mask the ragged edge themselves, so nothing is padded.
 """
 
 from __future__ import annotations
@@ -68,6 +70,11 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
     return out if layout == "bhsd" else out.transpose(1, 2).contiguous()
 
 
+# impl -> (source under csrc/, its C entry point)
+_KERNELS = {"grid": ("flash_attn", "flash_attn_fwd"),
+            "rows": ("flash_rows", "flash_rows_fwd")}
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, prescale_q: bool = True,
                     impl: str = "auto", layout: str = "bshd") -> torch.Tensor:
@@ -75,18 +82,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (layout="bhsd"); GQA expansion done by the caller.  Returns the same
     layout in q.dtype.
 
-    ``impl`` is "auto" or "grid" (the same kernel).  "rows", the TPU's
-    row-resident variant, is not ported yet."""
-    if impl == "rows":
-        raise NotImplementedError(
-            "impl='rows' (the TPU kernel _flash_kernel_rows) is not ported; "
-            "it is queued in ROADMAP.md as B3")
-    if impl not in ("auto", "grid"):
-        raise ValueError(f"impl must be 'auto' or 'grid', got {impl!r}")
+    ``impl`` picks the kernel on a CUDA tensor, as in JAX: "auto" and
+    "grid" launch ``csrc/flash_attn.cu``, "rows" the row-resident
+    ``csrc/flash_rows.cu``.  Each counts its launches on its own
+    (``flash_attention.launches``, ``flash_attention.rows_launches``)."""
+    if impl not in ("auto", "grid", "rows"):
+        raise ValueError(
+            f"impl must be 'auto', 'grid' or 'rows', got {impl!r}")
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, causal=causal,
                                          prescale_q=prescale_q, layout=layout)
-    return _flash_cuda(q, k, v, causal, prescale_q, layout)
+    return _flash_cuda(q, k, v, causal, prescale_q, layout,
+                       "grid" if impl == "auto" else impl)
 
 
 def _strides(x: torch.Tensor, layout: str):
@@ -95,7 +102,7 @@ def _strides(x: torch.Tensor, layout: str):
     return (sb, s1, s2) if layout == "bhsd" else (sb, s2, s1)
 
 
-def _flash_cuda(q, k, v, causal, prescale_q, layout):
+def _flash_cuda(q, k, v, causal, prescale_q, layout, impl="grid"):
     if layout not in ("bshd", "bhsd"):
         raise ValueError(f"layout must be 'bshd' or 'bhsd', got {layout!r}")
     for name, x in (("q", q), ("k", k), ("v", v)):
@@ -124,8 +131,8 @@ def _flash_cuda(q, k, v, causal, prescale_q, layout):
     out = torch.empty_like(q)
     if sq == 0 or b * h == 0:
         return out
-    lib = _build.load("flash_attn")
-    fn = lib.flash_attn_fwd
+    source, entry = _KERNELS[impl]
+    fn = getattr(_build.load(source), entry)
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 +
                    [ctypes.c_longlong] * 6 + [ctypes.c_int] * 2 +
@@ -137,9 +144,25 @@ def _flash_cuda(q, k, v, causal, prescale_q, layout):
                  int(causal), int(prescale_q), _scale(d), _DTYPES[q.dtype],
                  stream)
     if err != 0:
-        raise RuntimeError(f"flash_attn_fwd launch failed: CUDA error {err}")
-    flash_attention.launches += 1
+        raise RuntimeError(f"{entry} launch failed: CUDA error {err}")
+    if impl == "rows":
+        flash_attention.rows_launches += 1
+    else:
+        flash_attention.launches += 1
     return out
 
 
-flash_attention.launches = 0   # kernel launches since the last reset
+def rows_segment_tokens(sq: int, sk: int, d: int, dtype: torch.dtype,
+                        causal: bool) -> int:
+    """Keys one CTA of the "rows" kernel stages at once for this problem; a
+    q block whose live key span is longer stages it in segments.  Builds
+    the kernel's library (needs nvcc)."""
+    fn = _build.load("flash_rows").flash_rows_segment_tokens
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 5
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    return fn(sq, sk, d, itemsize, int(causal))
+
+
+flash_attention.launches = 0        # grid-kernel launches since the last reset
+flash_attention.rows_launches = 0   # rows-kernel launches since the last reset

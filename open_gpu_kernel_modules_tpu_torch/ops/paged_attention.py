@@ -6,7 +6,8 @@ shared pool.  ``paged_attention`` launches ``csrc/paged_decode.cu`` (which
 replaces the TPU kernel ``_paged_decode_kernel``) on a CUDA tensor, always:
 the TPU's gates (``kv*d % 128``, an 8 MB pool, a TPU backend) do not carry
 over.  On a CPU tensor it runs ``paged_attention_reference``, the jnp
-fallback's arithmetic.  There is no fallback on CUDA.
+fallback's arithmetic.  There is no fallback on CUDA: only the caller's
+explicit ``impl="jnp"`` runs the plain version there.
 """
 
 from __future__ import annotations
@@ -52,7 +53,8 @@ def paged_attention_reference(q: torch.Tensor, k_pages: torch.Tensor,
 
 def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
                     v_pages: torch.Tensor, page_table: torch.Tensor,
-                    seq_lens: torch.Tensor, num_heads: int) -> torch.Tensor:
+                    seq_lens: torch.Tensor, num_heads: int,
+                    impl: str = "auto") -> torch.Tensor:
     """Single-token decode attention.
 
     q:          [B, H, D]      query for the next position
@@ -60,9 +62,15 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     v_pages:    [N, P, KV, D]
     page_table: [B, M]         page indices per sequence (int32)
     seq_lens:   [B]            current length per sequence (int32)
+    impl:       "auto" or "kernel" launch the kernel on a CUDA tensor;
+                "jnp" (JAX's name for its plain path) asks for the plain
+                version on any device
     Returns [B, H, D].
     """
-    if q.device.type == "cpu":
+    if impl not in ("auto", "kernel", "jnp"):
+        raise ValueError(f"impl must be 'auto', 'kernel' or 'jnp', got "
+                         f"{impl!r}")
+    if impl == "jnp" or q.device.type == "cpu":
         return paged_attention_reference(q, k_pages, v_pages, page_table,
                                          seq_lens, num_heads)
     return _paged_cuda(q, k_pages, v_pages, page_table, seq_lens, num_heads)

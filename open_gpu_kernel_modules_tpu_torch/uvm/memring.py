@@ -1,0 +1,208 @@
+"""tpumemring — io_uring-style async memory-op rings (native/src/memring.c).
+
+The port's own copy of the part of the JAX package's ``uvm/memring.py``
+that the tiered KV backing uses: a ``MemRing`` bound to a VA space that
+stages device-access PREFETCH ops, publishes them with one doorbell, waits
+for the batch and reaps per-op completions.  The native worker pool
+coalesces contiguous spans into block-granular engine calls.  Errors come
+back per op; ``completions(check=True)`` raises :class:`native.RmError` on
+the first error completion.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import enum
+from typing import List, Optional
+
+from ..runtime import native
+
+
+class Op(enum.IntEnum):
+    """Opcodes (memring.h TPU_MEMRING_OP_*)."""
+
+    NOP = 0
+    MIGRATE = 1
+    PREFETCH = 2
+    EVICT = 3
+    ADVISE = 4
+    PEER_COPY = 5
+    FENCE = 6
+
+
+NDEPS = 4                      # dep slots per SQE (memring.h)
+
+
+class _Sqe(ctypes.Structure):
+    # 128-byte SQE128 layout (memring.h).
+    _fields_ = [
+        ("opcode", ctypes.c_uint8),
+        ("flags", ctypes.c_uint8),
+        ("dstTier", ctypes.c_uint16),
+        ("devInst", ctypes.c_uint32),
+        ("addr", ctypes.c_uint64),
+        ("len", ctypes.c_uint64),
+        ("userData", ctypes.c_uint64),
+        ("peerInst", ctypes.c_uint32),
+        ("arg0", ctypes.c_uint32),
+        ("peerOff", ctypes.c_uint64),
+        ("arg1", ctypes.c_uint64),
+        ("deadlineNs", ctypes.c_uint64),
+        ("deps", ctypes.c_uint64 * NDEPS),
+        ("depCount", ctypes.c_uint32),
+        ("rsvd0", ctypes.c_uint32),
+        ("seq", ctypes.c_uint64),
+        ("flowId", ctypes.c_uint64),
+        ("rsvd1", ctypes.c_uint64),
+    ]
+
+
+class _Cqe(ctypes.Structure):
+    _fields_ = [
+        ("userData", ctypes.c_uint64),
+        ("status", ctypes.c_uint32),
+        ("opcode", ctypes.c_uint32),
+        ("bytes", ctypes.c_uint64),
+        ("seq", ctypes.c_uint64),
+        ("startNs", ctypes.c_uint64),
+        ("endNs", ctypes.c_uint64),
+        ("pad", ctypes.c_uint64 * 2),
+    ]
+
+
+@dataclasses.dataclass(frozen=True)
+class Completion:
+    """One reaped CQE."""
+
+    user_data: int
+    status: int
+    opcode: Op
+    bytes: int
+    seq: int
+    start_ns: int
+    end_ns: int
+
+    @property
+    def ok(self) -> bool:
+        return self.status == 0
+
+
+_bound = None
+
+
+def _lib() -> ctypes.CDLL:
+    global _bound
+    if _bound is not None:
+        return _bound
+    lib = native.load()
+    u32, u64 = ctypes.c_uint32, ctypes.c_uint64
+    vp = ctypes.c_void_p
+    lib.tpurmMemringCreate.argtypes = [vp, u32, u32, ctypes.POINTER(vp)]
+    lib.tpurmMemringCreate.restype = u32
+    lib.tpurmMemringDestroy.argtypes = [vp]
+    lib.tpurmMemringDestroy.restype = None
+    lib.tpurmMemringPrep.argtypes = [vp, ctypes.POINTER(_Sqe)]
+    lib.tpurmMemringPrep.restype = u32
+    lib.tpurmMemringSubmit.argtypes = [vp]
+    lib.tpurmMemringSubmit.restype = u32
+    lib.tpurmMemringReap.argtypes = [vp, ctypes.POINTER(_Cqe), u32]
+    lib.tpurmMemringReap.restype = u32
+    lib.tpurmMemringWait.argtypes = [vp, u32, u64]
+    lib.tpurmMemringWait.restype = u32
+    lib.tpurmMemringWaitDrain.argtypes = [vp, u64]
+    lib.tpurmMemringWaitDrain.restype = u32
+    lib.tpurmMemringSqSpace.argtypes = [vp]
+    lib.tpurmMemringSqSpace.restype = u32
+    _bound = lib
+    return lib
+
+
+def _check(status: int, what: str) -> None:
+    if status != 0:
+        raise native.RmError(status, what)
+
+
+class MemRing:
+    """An async memory-op ring bound to a UVM VA space.
+
+    Destroy the ring before closing the space.  The prep methods stage
+    SQEs; nothing reaches the workers until :meth:`submit`.  Unlinked ops
+    run concurrently on the worker pool.
+    """
+
+    def __init__(self, vs, entries: int = 256):
+        self._lib = _lib()
+        handle = ctypes.c_void_p()
+        # workers=0: the engine's default worker pool.
+        _check(self._lib.tpurmMemringCreate(vs._handle, entries, 0,
+                                            ctypes.byref(handle)),
+               "tpurmMemringCreate")
+        self._handle = handle
+        self._auto_cookie = 0
+
+    def _prep(self, sqe: _Sqe) -> int:
+        self._auto_cookie += 1
+        sqe.userData = self._auto_cookie
+        _check(self._lib.tpurmMemringPrep(self._handle, ctypes.byref(sqe)),
+               "tpurmMemringPrep")
+        return sqe.userData
+
+    def prefetch(self, addr: int, length: int, dev: int = 0,
+                 flow: int = 0) -> int:
+        """Stage a device-access (read) prefetch: fault the span onto
+        ``dev``'s HBM through the batch service loop.  ``flow`` tags the op
+        with a tpuflow request identity.  Returns the op's cookie."""
+        s = _Sqe(opcode=Op.PREFETCH, devInst=dev, addr=addr, len=length,
+                 flowId=flow)
+        return self._prep(s)
+
+    def submit(self) -> int:
+        """Publish every staged SQE (one doorbell); returns the count."""
+        return self._lib.tpurmMemringSubmit(self._handle)
+
+    def submit_and_wait(self, wait_for: Optional[int] = None) -> int:
+        """Submit, then park until the work completes: every op submitted
+        so far (``wait_for=None``), or ``wait_for`` reapable CQEs.  RmError
+        on a wait timeout or a dropped-CQE bail."""
+        n = self.submit()
+        if wait_for is None:
+            self.drain()
+        elif wait_for:
+            self.wait(wait_for)
+        return n
+
+    def drain(self) -> None:
+        """Park until every op submitted so far has completed."""
+        _check(self._lib.tpurmMemringWaitDrain(self._handle, 0),
+               "tpurmMemringWaitDrain")
+
+    def wait(self, n: int) -> None:
+        """Park until ``n`` CQEs are reapable."""
+        _check(self._lib.tpurmMemringWait(self._handle, n, 0),
+               "tpurmMemringWait")
+
+    def completions(self, max_cqes: int = 1024,
+                    check: bool = False) -> List[Completion]:
+        """Reap up to ``max_cqes``.  ``check=True`` raises RmError on the
+        first error completion (after draining the batch)."""
+        buf = (_Cqe * max_cqes)()
+        n = self._lib.tpurmMemringReap(self._handle, buf, max_cqes)
+        out = [Completion(c.userData, c.status, Op(c.opcode), c.bytes,
+                          c.seq, c.startNs, c.endNs) for c in buf[:n]]
+        if check:
+            for c in out:
+                if not c.ok:
+                    raise native.RmError(
+                        c.status, f"memring op {c.opcode.name} "
+                                  f"user_data={c.user_data}")
+        return out
+
+    @property
+    def sq_space(self) -> int:
+        return self._lib.tpurmMemringSqSpace(self._handle)
+
+    def close(self) -> None:
+        if self._handle:
+            self._lib.tpurmMemringDestroy(self._handle)
+            self._handle = None

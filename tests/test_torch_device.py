@@ -26,6 +26,7 @@ ENTRY_POINTS = {
     "init_kv_cache": lambda: llama.init_kv_cache(TINY, 1),
     "causal_mask": lambda: llama.causal_mask(4, 4),
     "PagedKVCache.create": lambda: serving.PagedKVCache.create(TINY, 1, 16),
+    "TieredKVCache": lambda: serving.TieredKVCache(TINY, 1, 16),
     "params_from_jax": lambda: params_from_jax({"w": np.zeros(2)}),
 }
 
@@ -49,12 +50,21 @@ def test_explicit_cpu_device_works():
 
 
 def test_port_imports_no_jax():
+    """Neither JAX, nor the JAX package, nor ml_dtypes (JAX's bfloat16
+    for numpy, absent where the card is) is imported by any port module,
+    the native bindings included."""
     code = ("import sys\n"
             "import open_gpu_kernel_modules_tpu_torch.models.serving\n"
             "import open_gpu_kernel_modules_tpu_torch.models.convert\n"
             "import open_gpu_kernel_modules_tpu_torch.ops\n"
-            "bad = [m for m in sys.modules if m == 'jax' or "
-            "m.startswith(('jax.', 'open_gpu_kernel_modules_tpu.')) or "
+            "import open_gpu_kernel_modules_tpu_torch.runtime.native\n"
+            "import open_gpu_kernel_modules_tpu_torch.uvm\n"
+            "import open_gpu_kernel_modules_tpu_torch.uvm.managed\n"
+            "import open_gpu_kernel_modules_tpu_torch.uvm.memring\n"
+            "import open_gpu_kernel_modules_tpu_torch.uvm.reset\n"
+            "bad = [m for m in sys.modules if m in ('jax', 'ml_dtypes') or "
+            "m.startswith(('jax.', 'ml_dtypes.', "
+            "'open_gpu_kernel_modules_tpu.')) or "
             "m == 'open_gpu_kernel_modules_tpu']\n"
             "assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
@@ -83,5 +93,6 @@ def test_cuda_wrappers_reject_cpu_tensors_before_building():
         _paged_cuda(q, pages, pages, torch.zeros((1, 2), dtype=torch.int32),
                     torch.ones((1,), dtype=torch.int32), 4)
     x = torch.zeros((1, 8, 2, 64))
-    with pytest.raises(ValueError, match="CUDA"):
-        _flash_cuda(x, x, x, True, True, "bshd")
+    for impl in ("grid", "rows"):
+        with pytest.raises(ValueError, match="CUDA"):
+            _flash_cuda(x, x, x, True, True, "bshd", impl)

@@ -1,7 +1,9 @@
 """The port's flash attention (its plain version, which a CPU tensor runs)
-against the JAX package's Pallas kernel in interpret mode with 32-wide
+against the JAX package's Pallas kernels in interpret mode with 32-wide
 blocks, so the JAX side crosses several blocks, a diagonal and a padded
-tail.  fp32 tolerance 2e-5, as the JAX package's own flash tests use."""
+tail: the grid kernel (``impl="grid"``) and the row-resident one
+(``impl="rows"``), each against the port called with the same ``impl``.
+fp32 tolerance 2e-5, as the JAX package's own flash tests use."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -29,35 +31,36 @@ def _qkv(b, s, h, d, layout, seed=0, dtype=np.float32):
     return [normal(seed + i, shape, dtype) for i in range(3)]
 
 
+@pytest.mark.parametrize("impl", ["grid", "rows"])
 @pytest.mark.parametrize("case", sorted(CASES))
-def test_matches_jax(case):
+def test_matches_jax(case, impl):
     b, s, h, d, causal, layout, prescale = CASES[case]
     q, k, v = _qkv(b, s, h, d, layout)
     ref = jflash(*map(jnp.asarray, (q, k, v)), causal=causal, blk_q=32,
-                 blk_k=32, prescale_q=prescale, layout=layout)
+                 blk_k=32, prescale_q=prescale, impl=impl, layout=layout)
     out = tflash(*map(torch.from_numpy, (q, k, v)), causal=causal,
-                 prescale_q=prescale, layout=layout)
+                 prescale_q=prescale, impl=impl, layout=layout)
     assert out.shape == q.shape
     np.testing.assert_allclose(to_np(out), to_np(ref), atol=2e-5)
 
 
-def test_bf16_matches_jax():
+@pytest.mark.parametrize("impl", ["grid", "rows"])
+def test_bf16_matches_jax(impl):
     """bf16: both round the pre-scaled Q and P to bf16; the tolerance is
     the JAX package's own for its bf16 flash test."""
     q, k, v = _qkv(1, 64, 2, 32, "bshd", seed=4)
     ref = jflash(*(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)),
-                 causal=True, blk_q=32, blk_k=32)
+                 causal=True, blk_q=32, blk_k=32, impl=impl)
     out = tflash(*(torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v)),
-                 causal=True)
+                 causal=True, impl=impl)
     assert out.dtype == torch.bfloat16
     np.testing.assert_allclose(to_np(out), to_np(ref), atol=3e-2)
 
 
-def test_impl_rows_is_queued_and_unknown_impl_rejected():
+def test_unknown_impl_rejected():
     q, k, v = (torch.from_numpy(x) for x in _qkv(1, 8, 1, 16, "bshd"))
-    with pytest.raises(NotImplementedError, match="B3"):
-        tflash(q, k, v, impl="rows")
     with pytest.raises(ValueError, match="impl"):
         tflash(q, k, v, impl="pallas")
-    torch.testing.assert_close(tflash(q, k, v, impl="grid"),
-                               tflash(q, k, v, impl="auto"))
+    for impl in ("grid", "rows"):
+        torch.testing.assert_close(tflash(q, k, v, impl=impl),
+                                   tflash(q, k, v, impl="auto"))

@@ -17,7 +17,7 @@ import torch
 
 from open_gpu_kernel_modules_tpu_torch.models import llama, serving
 from open_gpu_kernel_modules_tpu_torch.ops.flash_attention import (
-    flash_attention, flash_attention_reference)
+    flash_attention, flash_attention_reference, rows_segment_tokens)
 from open_gpu_kernel_modules_tpu_torch.ops.paged_attention import (
     paged_attention, paged_attention_reference)
 
@@ -76,6 +76,38 @@ def test_flash_matches_reference(gen, dtype, s, d, causal, layout, prescale):
     torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype])
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,d,causal,layout,prescale", [
+    (200, 64, True, "bshd", True),        # fits shared memory whole
+    (256, 128, True, "bshd", True),       # fits whole in bf16, not in fp32
+    (1000, 128, True, "bhsd", True),      # needs segments
+    (777, 64, False, "bshd", False),      # segments, full, no prescale
+    (130, 128, False, "bhsd", True),      # ragged tail block
+    (1, 64, True, "bshd", True)])
+def test_flash_rows_matches_reference(gen, dtype, s, d, causal, layout,
+                                      prescale):
+    shape = (2, 3, s, d) if layout == "bhsd" else (2, s, 3, d)
+    q, k, v = (_randn(gen, shape, dtype) for _ in range(3))
+    kw = dict(causal=causal, prescale_q=prescale, layout=layout)
+    grid, rows = flash_attention.launches, flash_attention.rows_launches
+    out = flash_attention(q, k, v, impl="rows", **kw)
+    ref = flash_attention_reference(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention.rows_launches == rows + 1
+    assert flash_attention.launches == grid
+    torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype])
+
+
+def test_flash_rows_segments():
+    """The short main case stages its row whole; S=2048 needs segments."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    seg = rows_segment_tokens(256, 256, 128, torch.bfloat16, True)
+    assert seg >= 256
+    assert rows_segment_tokens(2048, 2048, 128, torch.bfloat16, True) < 2048
+    assert rows_segment_tokens(2048, 2048, 128, torch.bfloat16, True) % 64 == 0
+
+
 def test_tiny_serving_on_card_matches_cpu(gen):
     """fp32 tiny model: the card's logits (paged kernel in every layer)
     agree with the CPU's plain path."""
@@ -97,3 +129,55 @@ def test_tiny_serving_on_card_matches_cpu(gen):
         outs.append((first.cpu(), logits.cpu()))
     for on_card, on_cpu in zip(*outs):
         torch.testing.assert_close(on_card, on_cpu, atol=1e-4, rtol=1e-4)
+
+
+def test_paged_impl_selects_the_path(gen):
+    """On the card "auto" and "kernel" launch the kernel; "jnp" is the
+    caller's request for the plain version and launches nothing."""
+    h, kv, d, p, b, m = 8, 4, 64, 16, 2, 3
+    q = _randn(gen, (b, h, d), torch.float32)
+    kp, vp = (_randn(gen, (b * m, p, kv, d), torch.float32) for _ in range(2))
+    table = torch.arange(b * m, dtype=torch.int32, device="cuda").reshape(b, m)
+    lens = torch.tensor([5, 40], dtype=torch.int32, device="cuda")
+    ref = paged_attention_reference(q, kp, vp, table, lens, h)
+    for impl, launched in (("auto", 1), ("kernel", 1), ("jnp", 0)):
+        before = paged_attention.launches
+        out = paged_attention(q, kp, vp, table, lens, h, impl=impl)
+        torch.cuda.synchronize()
+        assert paged_attention.launches == before + launched
+        torch.testing.assert_close(out, ref, **TOL[torch.float32])
+    with pytest.raises(ValueError, match="impl"):
+        paged_attention(q, kp, vp, table, lens, h, impl="pallas")
+
+
+def test_tiny_tiered_decode_on_card_matches_cpu(gen):
+    """fp32 tiny model through the 4x-oversubscribed tiered cache: the
+    card (slot pool on the card, paged kernel in every layer, prefetch on
+    a side stream) gives the CPU's greedy tokens and the same stats."""
+    cfg = dataclasses.replace(llama.LlamaConfig.tiny(vocab_size=128),
+                              dtype=torch.float32, head_dim=32,
+                              num_heads=4, num_kv_heads=2, hidden_size=128)
+    params = llama.init_params(cfg, gen, device="cuda")
+    cpu_params = {k: ({kk: vv.cpu() for kk, vv in v.items()}
+                      if isinstance(v, dict) else v.cpu())
+                  for k, v in params.items()}
+    prompts = torch.randint(0, 128, (4, 9), generator=gen, device="cuda")
+    outs = []
+    for dev, prm in (("cuda", params), ("cpu", cpu_params)):
+        cache = serving.TieredKVCache(cfg, batch=4, max_len=64, page_size=8,
+                                      oversub=4, device=dev)
+        try:
+            for g in ([0, 1], [2, 3]):
+                serving.prefill_group(cfg, prm, cache, g,
+                                      prompts[g].to(dev))
+            launches = paged_attention.launches
+            serving.decode_rounds(cfg, prm, cache, [[0, 1], [2, 3]],
+                                  tokens_per_turn=3, turns=3)
+            if dev == "cuda":
+                assert paged_attention.launches == launches + 2 * 3 * 2 * 3
+                assert cache.stats["prefetched_uploads"] > 0
+            outs.append((cache.last_token.copy(), dict(cache.stats)))
+        finally:
+            cache.close()
+    assert (outs[0][0] == outs[1][0]).all()
+    assert outs[0][1] == outs[1][1]

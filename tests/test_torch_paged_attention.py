@@ -32,13 +32,15 @@ def _inputs(b, h, kv, d, page, m, seq_lens, seed=0):
     return q, k, v, table, np.asarray(seq_lens, np.int32)
 
 
-@pytest.mark.parametrize("impl", ["jnp", "kernel"])
+@pytest.mark.parametrize("impl", ["auto", "jnp", "kernel"])
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_matches_jax(case, impl):
+    """Each ``impl`` of JAX against the port called with the same one (on
+    a CPU tensor every ``impl`` of the port runs its plain version)."""
     b, h, kv, d, page, m, seq_lens = CASES[case]
     arrays = _inputs(b, h, kv, d, page, m, seq_lens)
     ref = jpaged(*map(jnp.asarray, arrays), h, impl=impl)
-    out = tpaged(*map(torch.from_numpy, arrays), h)
+    out = tpaged(*map(torch.from_numpy, arrays), h, impl=impl)
     np.testing.assert_allclose(to_np(out), to_np(ref), atol=2e-5)
     for i, s in enumerate(seq_lens):
         if s == 0:
@@ -69,3 +71,9 @@ def test_bf16_matches_jax():
     out = paged_attention_reference(*targs, h)
     assert out.dtype == torch.bfloat16
     np.testing.assert_allclose(to_np(out), to_np(ref), atol=2e-2)
+
+
+def test_unknown_impl_rejected():
+    arrays = _inputs(*CASES["mha"])
+    with pytest.raises(ValueError, match="impl"):
+        tpaged(*map(torch.from_numpy, arrays), 4, impl="pallas")
