@@ -9,10 +9,12 @@ same time), holds each kernel against its plain PyTorch version at the
 shapes Llama-3-8B gives it, then drives the port's paths at full Llama-3-8B
 width (random weights from a seed):
 
-1. identify the card, build the kernels and the native library;
+1. identify the card, build the kernels and the native library; count the
+   tensor-core products (HGMMA) and TMA loads (UTMALDG) in the SASS of the
+   two flash libraries, and fail if either is missing;
 2. paged decode (B1) against its reference, bf16 and fp32, ragged lengths;
 3. flash attention (B2, ``impl="grid"``) against its reference, causal and
-   full, odd length, both layouts;
+   full, odd length, both layouts, with each case's TFLOP/s;
 4. row-resident flash attention (B3, ``impl="rows"``) on B2's cases plus a
    short row that fits shared memory whole; its entry point driven once at
    its two main shapes (S=256 and S=2048);
@@ -29,7 +31,8 @@ width (random weights from a seed):
 
 Prints one ``{"kernels": [...]}`` line with each kernel's launches on the
 main path, its error against the plain version, its time, its bound, the
-plain version's time and one PyTorch library call's time; then the card's
+plain version's time, one PyTorch library call's time and the body it runs
+for bf16 and for fp32 (``tensor_cores`` or ``fma``); then the card's
 name and power limit; and last ``{"ok": true, "device": {...}}``.  Exits
 non-zero, printing no result, without CUDA or when any check fails.
 Imports nothing of JAX.
@@ -43,6 +46,7 @@ import subprocess
 import sys
 import threading
 import time
+from pathlib import Path
 
 import torch
 
@@ -193,7 +197,23 @@ def phase_build():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
+    check_sass(_build)
     return smi
+
+
+def check_sass(_build) -> None:
+    """The flash libraries' machine code must hold tensor-core products
+    (HGMMA, from wgmma) and TMA loads (UTMALDG)."""
+    cuobjdump = Path(_build.nvcc()).parent / "cuobjdump"
+    for name in ("flash_attn", "flash_rows"):
+        sass = subprocess.run([str(cuobjdump), "-sass",
+                               str(_build.library_path(name))],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        counts = {op: sass.count(op) for op in ("HGMMA", "UTMALDG")}
+        log(f"  {name} SASS: {counts}")
+        check(all(counts.values()), f"{name}: no HGMMA or no UTMALDG in "
+              "its SASS")
 
 
 # ------------------------------------------------------------------ phase 2
@@ -272,7 +292,7 @@ def phase_paged():
 def flash_case(b, h, s, d, causal, layout, dtype, gen, copies=2,
                impl="grid"):
     from open_gpu_kernel_modules_tpu_torch.ops.flash_attention import (
-        flash_attention, flash_attention_reference)
+        BODY, flash_attention, flash_attention_reference)
     shape = (b, h, s, d) if layout == "bhsd" else (b, s, h, d)
     args = [tuple(torch.randn(shape, generator=gen, device="cuda").to(dtype)
                   for _ in range(3)) for _ in range(copies)]
@@ -309,9 +329,10 @@ def flash_case(b, h, s, d, causal, layout, dtype, gen, copies=2,
     rec = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
                bound_by=by, library_ms=lib)
     log(f"{'B3 flash rows' if impl == 'rows' else 'B2 flash'} "
-        f"{str(dtype)[6:]} B={b} H={h} S={s} D={d} "
+        f"{str(dtype)[6:]} ({BODY[dtype]}) B={b} H={h} S={s} D={d} "
         f"causal={causal} {layout}: " + json.dumps(rec)
-        + f"; host enqueue {host[0]:.4f} ms/call")
+        + f"; {flops / ms / 1e9:.1f} TFLOP/s (SDPA {flops / lib / 1e9:.1f}); "
+        f"host enqueue {host[0]:.4f} ms/call")
     return rec
 
 
@@ -646,19 +667,24 @@ def main() -> int:
     b2_launches = phase_flash_forward(cfg, params, gen)
     b1_launches += phase_tiered(cfg, params, gen)
 
+    # Which body each kernel runs per dtype: B1 is CUDA-core code in both;
+    # B2 and B3 take the tensor cores in bf16 and keep FMAs in fp32.
+    from open_gpu_kernel_modules_tpu_torch.ops.flash_attention import BODY
+    flash_path = {str(dt)[6:]: body for dt, body in BODY.items()}
     kernels = [
         dict(name="paged_decode", route="cuda",
              source="open_gpu_kernel_modules_tpu_torch/ops/csrc/paged_decode.cu",
              replaces="open_gpu_kernel_modules_tpu/ops/paged_attention.py:35",
-             launches=b1_launches, **b1),
+             launches=b1_launches, path={"bfloat16": "fma", "float32": "fma"},
+             **b1),
         dict(name="flash_attn", route="cuda",
              source="open_gpu_kernel_modules_tpu_torch/ops/csrc/flash_attn.cu",
              replaces="open_gpu_kernel_modules_tpu/ops/flash_attention.py:103",
-             launches=b2_launches, **b2),
+             launches=b2_launches, path=flash_path, **b2),
         dict(name="flash_rows", route="cuda",
              source="open_gpu_kernel_modules_tpu_torch/ops/csrc/flash_rows.cu",
              replaces="open_gpu_kernel_modules_tpu/ops/flash_attention.py:37",
-             launches=b3_launches, **b3),
+             launches=b3_launches, path=flash_path, **b3),
     ]
     log(json.dumps({"kernels": kernels}))
     log(smi)

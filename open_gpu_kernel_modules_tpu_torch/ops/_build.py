@@ -7,10 +7,11 @@ a shared library with a plain C interface:
          -Xcompiler -fPIC -o _build/<name>-<hash>.so ops/csrc/<name>.cu
 
 The libraries land in ``open_gpu_kernel_modules_tpu_torch/_build/`` (listed
-in ``.gitignore``) on first use.  The file name carries a hash of the source
-and the flags, so an edited source is rebuilt and an unchanged one is
-reused.  ``build_all`` starts one nvcc per source at once.  Nothing here runs
-at import time, so a host without nvcc can import every module.
+in ``.gitignore``) on first use.  The file name carries a hash of the source,
+the headers beside it and the flags, so an edited source or header is
+rebuilt and an unchanged one is reused.  ``build_all`` starts one nvcc per
+source at once.  Nothing here runs at import time, so a host without nvcc
+can import every module.
 """
 
 from __future__ import annotations
@@ -46,9 +47,14 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    """Where ``csrc/<name>.cu`` builds to.  The hash covers the source,
+    every ``csrc/*.cuh`` header (a source may include any of them) and the
+    flags, so an edited header rebuilds the libraries too."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def _start(name: str) -> subprocess.Popen:

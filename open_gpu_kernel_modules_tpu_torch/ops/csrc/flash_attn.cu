@@ -11,32 +11,40 @@
 // The caller passes the element strides of the batch, head and sequence
 // axes, so both layouts are read in place: no transpose or padding copies.
 //
-// Design.  One CTA per (b*h, 64-row q block); an in-CTA loop over 64-row k
-// blocks replaces the TPU's sequential third grid axis.  Under `causal` the
-// loop stops at the last block the q block can see, and the q blocks with the
-// most work are scheduled first.  Q, K, V and P tiles sit in shared memory in
-// fp32; each of the 256 threads owns a 4x4 patch of the 64x64 score tile and
-// a 4 x D/16 patch of the output, accumulated in fp32 registers with plain
-// FMAs.  Only the diagonal and kv-length-tail blocks are masked (to -1e30, as
-// on the TPU); ragged edges are masked here, never padded.  With `prescale`
-// Q is multiplied by `scale` and rounded to the input type while it is loaded
-// (the TPU wrapper's prescale_q); otherwise the scores are scaled.  P is
-// rounded to V's type before PV; a zero denominator becomes 1.
-//
 // Bound on the H100: at Llama prefill shapes (S=2048, D=128) the work is
 // 4*B*H*Sq*Sk*D FLOPs (half under causal) against a few bytes per FLOP, so
-// the tensor-core rate bounds it: 989 TFLOP/s in bf16.  This kernel uses
-// CUDA-core FMAs, whose fp32 peak is 67 TFLOP/s, so it stays well short of
-// that bound; mma.sync/wgmma tiles with TMA loads are the next step.
+// the tensor-core rate bounds it: 989 TFLOP/s in bf16.
+//
+// Two bodies, chosen by dtype:
+//
+// - bf16 runs the tensor-core core of attn_sm90.cuh as a ring: one CTA per
+//   (b*h, 128-row q block), a producer warp keeps kStages 64-key K/V blocks
+//   in flight by TMA while two consumer warpgroups run QK^T and PV as wgmma
+//   with the softmax in registers.  Under `causal` the loop stops at the
+//   last block the q block can see.
+// - fp32 runs the FMA body below, kept as PR 1 wrote it (templated on the
+//   element type; only float is instantiated now).  The tensor cores have
+//   no full-fp32 mode, and TF32 (10 mantissa bits) cannot meet the fp32
+//   limit of (1e-4, 0) against the plain version, so fp32 stays on the CUDA
+//   cores (67 TFLOP/s peak).  One CTA per (b*h, 64-row q block); an in-CTA
+//   loop over 64-row k blocks.  Q, K, V and P tiles sit in shared memory in
+//   fp32; each of the 256 threads owns a 4x4 patch of the 64x64 score tile
+//   and a 4 x D/16 patch of the output, accumulated with plain FMAs.  Only
+//   the diagonal and kv-length-tail blocks are masked (to -1e30, as on the
+//   TPU).  With `prescale` Q is multiplied by `scale` while it is loaded;
+//   otherwise the scores are scaled.  A zero denominator becomes 1.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "attn_sm90.cuh"
+
 namespace {
 
 constexpr float kNegInf = -1e30f;
 constexpr int kBQ = 64, kBK = 64, kThreads = 256;
+constexpr int kStages = 4;   // K/V blocks in flight in the bf16 ring
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -46,9 +54,7 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
   return __float2bfloat16_rn(x);
 }
 
-struct Strides {
-  long long b, h, s;   // in elements; the head dim is contiguous
-};
+using attn_sm90::Strides;
 
 // Shared memory, in floats: Q [BQ][D+1], K [BK][D+1], V [BK][D], P [BQ][BK+1].
 // Q, K and P rows are padded by one float so threads reading one column of
@@ -217,12 +223,23 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int H,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dispatch_d(const void* q, const void* k, const void* v, void* out, int B, int H,
-               int Sq, int Sk, int D, Strides qs, Strides ks, int causal,
-               int prescale, float scale, cudaStream_t s) {
-  if (D == 64) return launch<T, 64>(q, k, v, out, B, H, Sq, Sk, qs, ks, causal, prescale, scale, s);
-  if (D == 128) return launch<T, 128>(q, k, v, out, B, H, Sq, Sk, qs, ks, causal, prescale, scale, s);
+int dispatch_fp32(const void* q, const void* k, const void* v, void* out, int B, int H,
+                  int Sq, int Sk, int D, Strides qs, Strides ks, int causal,
+                  int prescale, float scale, cudaStream_t s) {
+  if (D == 64) return launch<float, 64>(q, k, v, out, B, H, Sq, Sk, qs, ks, causal, prescale, scale, s);
+  if (D == 128) return launch<float, 128>(q, k, v, out, B, H, Sq, Sk, qs, ks, causal, prescale, scale, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+int dispatch_bf16(const void* q, const void* k, const void* v, void* out, int B, int H,
+                  int Sq, int Sk, int D, Strides qs, Strides ks,
+                  int causal, int prescale, float scale, cudaStream_t s) {
+  if (D == 64)
+    return attn_sm90::launch<64, false>(q, k, v, out, B, H, Sq, Sk, qs, ks, causal, prescale,
+                                        scale, kStages, s);
+  if (D == 128)
+    return attn_sm90::launch<128, false>(q, k, v, out, B, H, Sq, Sk, qs, ks, causal, prescale,
+                                         scale, kStages, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -232,17 +249,19 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16; D in {64, 128}.  q/out share strides
 // (q_sb, q_sh, q_ss), k/v share (k_sb, k_sh, k_ss).  The `scale` is
-// log2(e)/sqrt(D) rounded to fp32.  Returns cudaGetLastError() (0 = ok).
+// log2(e)/sqrt(D) rounded to fp32.  bf16 runs on the tensor cores, fp32 on
+// the CUDA cores.  Returns 0, a CUDA error, or attn_sm90's tensor-map codes.
 int flash_attn_fwd(const void* q, const void* k, const void* v, void* out, int B,
                    int H, int Sq, int Sk, int D, long long q_sb, long long q_sh,
                    long long q_ss, long long k_sb, long long k_sh, long long k_ss,
                    int causal, int prescale, float scale, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Strides qs{q_sb, q_sh, q_ss}, ks{k_sb, k_sh, k_ss};
   if (dtype == 0)
-    return dispatch_d<float>(q, k, v, out, B, H, Sq, Sk, D, qs, ks, causal, prescale, scale, s);
+    return dispatch_fp32(q, k, v, out, B, H, Sq, Sk, D, {q_sb, q_sh, q_ss}, {k_sb, k_sh, k_ss},
+                         causal, prescale, scale, s);
   if (dtype == 1)
-    return dispatch_d<__nv_bfloat16>(q, k, v, out, B, H, Sq, Sk, D, qs, ks, causal, prescale, scale, s);
+    return dispatch_bf16(q, k, v, out, B, H, Sq, Sk, D, {q_sb, q_sh, q_ss}, {k_sb, k_sh, k_ss},
+                         causal, prescale, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -24,6 +24,10 @@ NEG_INF = -1e30
 LOG2_E = 1.4426950408889634   # softmax runs base-2; scale carries log2(e)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# The body each dtype runs inside both kernels (the C entry points choose it
+# by their dtype argument): bf16 the wgmma/TMA core of csrc/attn_sm90.cuh,
+# fp32 the CUDA-core FMA body, since TF32 cannot meet fp32's tolerance.
+BODY = {torch.bfloat16: "tensor_cores", torch.float32: "fma"}
 _HEAD_DIMS = (64, 128)
 
 
@@ -144,7 +148,9 @@ def _flash_cuda(q, k, v, causal, prescale_q, layout, impl="grid"):
                  int(causal), int(prescale_q), _scale(d), _DTYPES[q.dtype],
                  stream)
     if err != 0:
-        raise RuntimeError(f"{entry} launch failed: CUDA error {err}")
+        # attn_sm90.cuh adds two codes past CUDA's own: 2000, libcuda has no
+        # cuTensorMapEncodeTiled; 3000 + r, it refused a tensor map (r).
+        raise RuntimeError(f"{entry} launch failed: error {err}")
     if impl == "rows":
         flash_attention.rows_launches += 1
     else:

@@ -98,6 +98,44 @@ def test_flash_rows_matches_reference(gen, dtype, s, d, causal, layout,
     torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype])
 
 
+@pytest.mark.parametrize("impl", ["grid", "rows"])
+@pytest.mark.parametrize("prescale", [True, False])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("layout", ["bshd", "bhsd"])
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 1000])
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_tensor_cores_match_reference(gen, d, s, layout, causal,
+                                            prescale, impl):
+    """bf16 runs the wgmma/TMA core: one 64-column swizzled box per row at
+    D=64, two at D=128; lengths around one block and a ragged tail that
+    TMA zero-fills; the transposed V descriptor is checked by the values."""
+    shape = (2, 3, s, d) if layout == "bhsd" else (2, s, 3, d)
+    q, k, v = (_randn(gen, shape, torch.bfloat16) for _ in range(3))
+    kw = dict(causal=causal, prescale_q=prescale, layout=layout)
+    counts = (flash_attention.launches, flash_attention.rows_launches)
+    out = flash_attention(q, k, v, impl=impl, **kw)
+    ref = flash_attention_reference(q, k, v, **kw)
+    torch.cuda.synchronize()
+    rose = (flash_attention.launches - counts[0],
+            flash_attention.rows_launches - counts[1])
+    assert rose == ((0, 1) if impl == "rows" else (1, 0))
+    torch.testing.assert_close(out.float(), ref.float(),
+                               **TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("impl", ["grid", "rows"])
+def test_flash_tensor_cores_many_ctas(gen, impl):
+    """The main shape: 32 heads x 32 q blocks of CTAs run the causal ring
+    (grid) or the resident segments (rows) at once."""
+    q, k, v = (_randn(gen, (1, 2048, 32, 128), torch.bfloat16)
+               for _ in range(3))
+    out = flash_attention(q, k, v, causal=True, impl=impl)
+    ref = flash_attention_reference(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(),
+                               **TOL[torch.bfloat16])
+
+
 def test_flash_rows_segments():
     """The short main case stages its row whole; S=2048 needs segments."""
     if not torch.cuda.is_available():
