@@ -11,8 +11,14 @@ width (random weights from a seed):
 
 1. identify the card, build the kernels and the native library; count the
    tensor-core products (HGMMA) and TMA loads (UTMALDG) in the SASS of the
-   two flash libraries, and fail if either is missing;
+   two flash libraries, and the tensor-core products (HMMA) and async
+   copies (UBLKCP, UTMALDG or LDGSTS) in paged decode's, and fail if any
+   kind is missing;
 2. paged decode (B1) against its reference, bf16 and fp32, ragged lengths;
+   then bf16 at the shapes of dense serving (the main one), of a tiered
+   decode group, of one 8192-token context and of a large batch, and the
+   main grid with one live token per sequence (the latency floor), each
+   with its splits, time, bound, SDPA's time and the host's enqueue time;
 3. flash attention (B2, ``impl="grid"``) against its reference, causal and
    full, odd length, both layouts, with each case's TFLOP/s;
 4. row-resident flash attention (B3, ``impl="rows"``) on B2's cases plus a
@@ -126,8 +132,9 @@ def host_ms(fn, iters: int = 5) -> float:
 
 
 def device_kernel_ms(fn):
-    """(total ms of CUDA kernels in one call, [(name, ms)] top 5) from a
-    torch.profiler trace; (None, []) when the trace holds no device time."""
+    """(total ms of CUDA kernels in one call, [(name, ms)] of every kernel,
+    largest first) from a torch.profiler trace; (None, []) when the trace
+    holds no device time."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -141,7 +148,7 @@ def device_kernel_ms(fn):
     total = sum(ms for _, ms in rows)
     if total == 0:
         return None, []
-    return total, sorted(rows, key=lambda r: -r[1])[:5]
+    return total, sorted(rows, key=lambda r: -r[1])
 
 
 def reset_counts() -> None:
@@ -201,19 +208,30 @@ def phase_build():
     return smi
 
 
+# Per library: kinds of instruction its SASS must hold, each kind a tuple of
+# opcodes of which at least one must appear.
+SASS_KINDS = {
+    "flash_attn": {"tensor cores": ("HGMMA",), "TMA loads": ("UTMALDG",)},
+    "flash_rows": {"tensor cores": ("HGMMA",), "TMA loads": ("UTMALDG",)},
+    "paged_decode": {"tensor cores": ("HMMA", "HGMMA"),
+                     "async copies": ("UTMALDG", "UBLKCP", "LDGSTS")},
+}
+
+
 def check_sass(_build) -> None:
-    """The flash libraries' machine code must hold tensor-core products
-    (HGMMA, from wgmma) and TMA loads (UTMALDG)."""
+    """Each kernel library's machine code must hold its tensor-core products
+    and its asynchronous copies (SASS_KINDS)."""
     cuobjdump = Path(_build.nvcc()).parent / "cuobjdump"
-    for name in ("flash_attn", "flash_rows"):
+    for name, kinds in SASS_KINDS.items():
         sass = subprocess.run([str(cuobjdump), "-sass",
                                str(_build.library_path(name))],
                               capture_output=True, text=True,
                               check=True).stdout
-        counts = {op: sass.count(op) for op in ("HGMMA", "UTMALDG")}
+        counts = {op: sass.count(op) for ops in kinds.values() for op in ops}
         log(f"  {name} SASS: {counts}")
-        check(all(counts.values()), f"{name}: no HGMMA or no UTMALDG in "
-              "its SASS")
+        for kind, ops in kinds.items():
+            check(any(counts[op] for op in ops),
+                  f"{name}: no {kind} ({' or '.join(ops)}) in its SASS")
 
 
 # ------------------------------------------------------------------ phase 2
@@ -221,7 +239,7 @@ def check_sass(_build) -> None:
 def paged_case(b, h, kv, d, p, m, lens, dtype, copies, gen):
     """Random pool and permuted page table; returns the kernel's record."""
     from open_gpu_kernel_modules_tpu_torch.ops.paged_attention import (
-        paged_attention, paged_attention_reference)
+        body, paged_attention, paged_attention_reference, split_plan)
     n = b * m
     args = []
     for _ in range(copies):
@@ -270,9 +288,13 @@ def paged_case(b, h, kv, d, p, m, lens, dtype, copies, gen):
                                     enable_gqa=True) for a in lib_args])
     rec = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
                bound_by=by, library_ms=lib)
-    log(f"B1 paged decode {str(dtype)[6:]} B={b} H={h} KV={kv} D={d} P={p} "
-        f"M={m} lens={lens}: " + json.dumps(rec)
-        + f"; host enqueue {host[0]:.4f} ms/call")
+    pps, splits = split_plan(b * kv, m)
+    shown = lens if len(lens) <= 8 else f"{lens[:4]}...({len(lens)})"
+    log(f"B1 paged decode {str(dtype)[6:]} ({body(dtype, h // kv, d)}) B={b} "
+        f"H={h} KV={kv} D={d} P={p} M={m} lens={shown}: {splits} splits of "
+        f"{pps} pages, {b * kv * splits} CTAs: " + json.dumps(rec)
+        + f"; {rec['ms'] / bms:.2f}x bound, {rec['ms'] / lib:.2f}x SDPA; "
+        f"host enqueue {host[0]:.4f} ms/call")
     return rec
 
 
@@ -283,8 +305,20 @@ def phase_paged():
         paged_case(8, 32, 8, 128, 64, 32, ragged, dtype, copies=4, gen=gen)
     # The shape the serving phase gives the kernel (prompt 512 + 32 new
     # tokens in pages of 64), cycled over enough pools to exceed L2.
-    return paged_case(8, 32, 8, 128, 64, 9, [544] * 8, torch.bfloat16,
+    main = paged_case(8, 32, 8, 128, 64, 9, [544] * 8, torch.bfloat16,
                       copies=8, gen=gen)
+    # A tiered decode group (4 of 16 sequences, permuted slot tables), one
+    # Llama-3-8B context of 8192 tokens, and a large batch.
+    paged_case(4, 32, 8, 128, 64, 9, [513, 518, 523, 528], torch.bfloat16,
+               copies=16, gen=gen)
+    paged_case(1, 32, 8, 128, 64, 128, [8192], torch.bfloat16, copies=4,
+               gen=gen)
+    paged_case(32, 32, 8, 128, 64, 32, [2048] * 32, torch.bfloat16,
+               copies=2, gen=gen)
+    # The latency floor: the main grid with one live token per sequence.
+    paged_case(8, 32, 8, 128, 64, 9, [1] * 8, torch.bfloat16, copies=8,
+               gen=gen)
+    return main
 
 
 # ------------------------------------------------------------------ phase 3
@@ -440,12 +474,13 @@ def phase_serving(cfg, params, gen):
     def step():
         serving.decode_step(cfg, params, nxt, cache)
     step_ms = host_ms(step)
-    dev_ms, top = device_kernel_ms(step)
+    dev_ms, rows = device_kernel_ms(step)
     busy = "not measured" if dev_ms is None else f"{dev_ms / step_ms:.3f}"
+    b1_ms = sum(ms for name, ms in rows if "paged_decode" in name)
     log(f"serving: decode step {step_ms:.3f} ms (host clock, mean of 5); "
-        f"kernels {dev_ms if dev_ms is None else round(dev_ms, 3)} ms; "
-        f"device busy share {busy}")
-    for name, ms in top:
+        f"kernels {dev_ms if dev_ms is None else round(dev_ms, 3)} ms, of "
+        f"which B1 {b1_ms:.3f} ms; device busy share {busy}")
+    for name, ms in rows[:5]:
         log(f"  {ms:8.3f} ms  {name[:90]}")
     return launches
 
@@ -667,15 +702,18 @@ def main() -> int:
     b2_launches = phase_flash_forward(cfg, params, gen)
     b1_launches += phase_tiered(cfg, params, gen)
 
-    # Which body each kernel runs per dtype: B1 is CUDA-core code in both;
-    # B2 and B3 take the tensor cores in bf16 and keep FMAs in fp32.
+    # Which body each kernel runs per dtype at the main shapes: all three
+    # take the tensor cores in bf16 and keep FMAs in fp32.
     from open_gpu_kernel_modules_tpu_torch.ops.flash_attention import BODY
-    flash_path = {str(dt)[6:]: body for dt, body in BODY.items()}
+    from open_gpu_kernel_modules_tpu_torch.ops.paged_attention import body
+    flash_path = {str(dt)[6:]: b for dt, b in BODY.items()}
+    paged_path = {str(dt)[6:]: body(dt, cfg.num_heads // cfg.num_kv_heads,
+                                    cfg.head_dim) for dt in BODY}
     kernels = [
         dict(name="paged_decode", route="cuda",
              source="open_gpu_kernel_modules_tpu_torch/ops/csrc/paged_decode.cu",
              replaces="open_gpu_kernel_modules_tpu/ops/paged_attention.py:35",
-             launches=b1_launches, path={"bfloat16": "fma", "float32": "fma"},
+             launches=b1_launches, path=paged_path,
              **b1),
         dict(name="flash_attn", route="cuda",
              source="open_gpu_kernel_modules_tpu_torch/ops/csrc/flash_attn.cu",

@@ -1,5 +1,8 @@
 // Shared warpgroup core of the two bf16 flash-attention kernels for Hopper
 // (sm_90a): flash_attn.cu (grid, B2) and flash_rows.cu (row-resident, B3).
+// The paged decode kernel (paged_decode.cu, B1) shares its constants and
+// primitives: the TMA loads, the mbarriers and their trapping wait, and the
+// tensor-map encoding.
 //
 // The bound.  At Llama prefill shapes (S=2048, D=128) the work is
 // 4*B*H*Sq*Sk*D FLOPs (half under causal) against a few bytes per FLOP, so
@@ -532,13 +535,10 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int H,
   if (!err) err = encode(&tk, k, D, Sk, H, B, ks);
   if (!err) err = encode(&tv, v, D, Sk, H, B, ks);
   if (err) return err;
-  static bool opted_in = false;
-  if (!opted_in) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        attn_fwd_kernel<D, kSegments>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
-    if (e != cudaSuccess) return (int)e;
-    opted_in = true;
-  }
+  // The opt-in holds for the current device only: set it on every launch.
+  const cudaError_t e = cudaFuncSetAttribute(
+      attn_fwd_kernel<D, kSegments>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
+  if (e != cudaSuccess) return (int)e;
   const Params p{static_cast<__nv_bfloat16*>(out), qs, H, Sq, Sk, causal, prescale, slots, scale};
   dim3 grid(B * H, (Sq + kBlkQ - 1) / kBlkQ);
   attn_fwd_kernel<D, kSegments><<<grid, kThreads, smem_bytes(D, slots), stream>>>(tq, tk, tv, p);

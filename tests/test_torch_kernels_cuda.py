@@ -19,7 +19,7 @@ from open_gpu_kernel_modules_tpu_torch.models import llama, serving
 from open_gpu_kernel_modules_tpu_torch.ops.flash_attention import (
     flash_attention, flash_attention_reference, rows_segment_tokens)
 from open_gpu_kernel_modules_tpu_torch.ops.paged_attention import (
-    paged_attention, paged_attention_reference)
+    paged_attention, paged_attention_reference, split_plan)
 
 pytestmark = pytest.mark.cuda
 TOL = {torch.float32: dict(atol=1e-4, rtol=0.0),
@@ -57,6 +57,72 @@ def test_paged_decode_matches_reference(gen, dtype, h, kv, d, p):
     assert out.dtype == dtype and torch.isfinite(out).all()
     assert (out[0] == 0).all()
     torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype])
+
+
+def _paged_check(gen, b, h, kv, d, p, m, lens, dtype):
+    """The kernel against the plain version on a permuted table whose
+    lens = 0 rows hold page ids outside the pool; those rows must be exactly
+    zero and the call must count one launch."""
+    n = b * m
+    q = _randn(gen, (b, h, d), dtype)
+    kp, vp = (_randn(gen, (n, p, kv, d), dtype) for _ in range(2))
+    table = torch.randperm(n, generator=gen, device="cuda").to(
+        torch.int32).reshape(b, m)
+    for i, s in enumerate(lens):
+        if s == 0:
+            table[i] = torch.tensor([n + 99, -7] * m, dtype=torch.int32)[:m]
+    seq_lens = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    before = paged_attention.launches
+    out = paged_attention(q, kp, vp, table, seq_lens, h)
+    ref = paged_attention_reference(q, kp, vp, table, seq_lens, h)
+    torch.cuda.synchronize()
+    assert paged_attention.launches == before + 1
+    assert out.dtype == dtype and torch.isfinite(out).all()
+    for i, s in enumerate(lens):
+        if s == 0:
+            assert (out[i] == 0).all()
+    torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("rep", [1, 2, 4, 8])
+def test_paged_decode_heads_and_dims(gen, rep, d, dtype):
+    """Every tensor-core tile width and rep of the main models, and their
+    FMA twins: 12 splits of one page each, the second row's later splits
+    all empty, a lens = 0 row with garbage page ids."""
+    b, kv, p, m = 3, 2, 16, 12
+    assert split_plan(b * kv, m) == (1, 12)
+    _paged_check(gen, b, rep * kv, kv, d, p, m, [0, 13, 150], dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["long", "one_split", "one_page",
+                                  "past_table", "wide_rep", "odd_dim",
+                                  "tiered_group", "page_5", "page_12",
+                                  "page_48", "page_128"])
+def test_paged_decode_splits(gen, case, dtype):
+    """B=1 at 8192 tokens (32 splits of 4 pages, all in flight), the
+    one-split path (B*KV >= 264, and M = 1), lens past M*P, the bf16 shapes
+    the tensor-core tile does not take (rep 32; D = 72), and page sizes whose
+    TMA boxes hold 1, 4, 16 or 64 rows (a stage spanning pages, or a page
+    spanning stages)."""
+    b, h, kv, d, p, m, lens, splits = {
+        "long": (1, 32, 8, 128, 64, 128, [8192], 32),
+        "one_split": (40, 8, 8, 64, 16, 4, [(7 * i) % 65 for i in range(40)],
+                      1),
+        "one_page": (2, 8, 2, 128, 64, 1, [0, 50], 1),
+        "past_table": (2, 8, 2, 64, 16, 3, [1000, 48], 3),
+        "wide_rep": (2, 32, 1, 128, 64, 9, [544, 0], 9),
+        "odd_dim": (3, 8, 2, 72, 16, 8, [0, 100, 128], 8),
+        "tiered_group": (4, 32, 8, 128, 64, 9, [513, 518, 523, 528], 9),
+        "page_5": (2, 8, 4, 128, 5, 7, [33, 0], 7),
+        "page_12": (3, 8, 2, 64, 12, 6, [0, 70, 40], 6),
+        "page_48": (2, 16, 4, 128, 48, 5, [200, 97], 5),
+        "page_128": (2, 32, 8, 128, 128, 3, [300, 129], 3),
+    }[case]
+    assert split_plan(b * kv, m)[1] == splits
+    _paged_check(gen, b, h, kv, d, p, m, lens, dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -186,6 +252,37 @@ def test_paged_impl_selects_the_path(gen):
         torch.testing.assert_close(out, ref, **TOL[torch.float32])
     with pytest.raises(ValueError, match="impl"):
         paged_attention(q, kp, vp, table, lens, h, impl="pallas")
+
+
+@pytest.mark.parametrize("kernel", ["paged", "flash_grid", "flash_rows"])
+def test_kernels_on_a_second_device(gen, kernel):
+    """Each kernel's opt-in to more than 48 KB of shared memory holds for
+    one device only: a launch on cuda:1 after one on cuda:0 must still get
+    it.  B1 at the main shape needs 64 KB."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    if kernel == "paged":
+        h, kv, d, p, b, m = 32, 8, 128, 64, 8, 9
+        args = [_randn(gen, (b, h, d), torch.bfloat16)]
+        args += [_randn(gen, (b * m, p, kv, d), torch.bfloat16)
+                 for _ in range(2)]
+        args += [torch.randperm(b * m, generator=gen, device="cuda").to(
+                     torch.int32).reshape(b, m),
+                 torch.full((b,), 544, dtype=torch.int32, device="cuda")]
+        run = lambda *x: paged_attention(*x, h)
+        ref = paged_attention_reference(*args, h)
+    else:
+        impl = kernel.split("_")[1]
+        args = [_randn(gen, (1, 1000, 4, 128), torch.bfloat16)
+                for _ in range(3)]
+        run = lambda *x: flash_attention(*x, causal=True, impl=impl)
+        ref = flash_attention_reference(*args, causal=True)
+    for dev in ("cuda:0", "cuda:1"):
+        out = run(*(x.to(dev) for x in args))
+        torch.cuda.synchronize(dev)
+        assert out.device == torch.device(dev)
+        torch.testing.assert_close(out.float().cpu(), ref.float().cpu(),
+                                   **TOL[torch.bfloat16])
 
 
 def test_tiny_tiered_decode_on_card_matches_cpu(gen):
