@@ -33,7 +33,16 @@ width (random weights from a seed):
    ``prefill_group`` then ``decode_rounds`` (8 tokens a turn, 2 turns), at
    ``oversub`` 1 and then 4; the greedy tokens of the two runs must be
    equal, and equal to a dense ``generate`` of the first group; the
-   ``oversub=4`` run must park written pages in the victim ring.
+   ``oversub=4`` run must park written pages in the victim ring;
+8. scheduler: the continuous-batching ``Scheduler`` over the tiered cache,
+   8 streams of 504-token prompts, 64 new tokens each, 8 a round (5
+   submitted, two rounds, then 3 more mid-decode): run A at ``oversub`` 1,
+   run A' the same with three forced device resets (its tokens must equal
+   A's), run B at ``oversub`` 2, where decode growth must preempt and every
+   preempted stream must be restored, and an untimed run T, A again with one
+   steady round traced by the profiler (its tokens must equal A's); B1 must
+   launch once per layer per decode step of every round, and no flash
+   kernel.
 
 Prints one ``{"kernels": [...]}`` line with each kernel's launches on the
 main path, its error against the plain version, its time, its bound, the
@@ -54,6 +63,7 @@ import threading
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12                 # H100 SXM device memory
@@ -131,24 +141,33 @@ def host_ms(fn, iters: int = 5) -> float:
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
-def device_kernel_ms(fn):
-    """(total ms of CUDA kernels in one call, [(name, ms)] of every kernel,
-    largest first) from a torch.profiler trace; (None, []) when the trace
-    holds no device time."""
+def profiled(fn):
+    """(host ms of one synchronised call of ``fn``, total ms of its CUDA
+    kernels, [(name, ms)] of every kernel, largest first) from a
+    torch.profiler trace; the kernel total is None when the trace holds no
+    device time."""
     from torch.profiler import ProfilerActivity, profile
-    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
+        host = (time.perf_counter() - t0) * 1e3
     rows = [(e.key, e.self_device_time_total / 1e3)
             for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA]
     total = sum(ms for _, ms in rows)
-    if total == 0:
-        return None, []
-    return total, sorted(rows, key=lambda r: -r[1])
+    return host, (total or None), sorted(rows, key=lambda r: -r[1])
+
+
+def device_kernel_ms(fn):
+    """(total ms of CUDA kernels in one call, [(name, ms)] of every kernel,
+    largest first) after one warm-up call; (None, []) when the trace holds
+    no device time."""
+    fn()
+    _, total, rows = profiled(fn)
+    return (total, rows) if total else (None, [])
 
 
 def reset_counts() -> None:
@@ -677,6 +696,139 @@ def phase_tiered(cfg, params, gen):
     return launches
 
 
+# ------------------------------------------------------------------ phase 8
+
+# Continuous batching over the tiered cache.  A KV page is 8 MiB at this
+# width (32 layers x 64 tokens x 8 kv heads x 128 x bf16, K and V), the
+# backing 80 pages (640 MiB, inside the 1024 MB arena).  At oversub 2 the
+# slot pool holds 40 pages: five admitted streams (8 pages each at 504 + 8
+# tokens) fill it, and the next round's growth past 512 tokens needs 9
+# pages each, so decode growth must preempt.
+SCHED = dict(streams=8, first=5, prompt=504, new=64, max_seqs=8,
+             max_len=640, page=64, tokens_per_round=8)
+SCHED_RESETS = (2, 4, 6)        # run A': device resets after these rounds
+# Run T: the round traced by the profiler, one at batch 8 with no admission,
+# no reset and no retirement in it.
+SCHED_PROFILED_ROUND = 6
+
+
+def sched_run(cfg, params, prompts, oversub, resets=(), traced_round=0):
+    """One scheduler run: submit 5 streams, step twice, submit 3 more, step
+    until idle; ``resets`` force a device reset after those rounds, and
+    ``traced_round`` runs that round under the profiler (the run's report
+    then includes the profiler's cost: its wall is not a throughput).
+    Returns (tokens [streams, new], report with ``reset_s``, the host time
+    spent inside the forced resets, and (host ms, kernel ms) of the traced
+    round or None)."""
+    from open_gpu_kernel_modules_tpu_torch.runtime import sched
+    from open_gpu_kernel_modules_tpu_torch.uvm import reset
+    t = SCHED
+    s = sched.Scheduler(cfg, params, max_seqs=t["max_seqs"],
+                        max_len=t["max_len"], page_size=t["page"],
+                        oversub=oversub,
+                        tokens_per_round=t["tokens_per_round"])
+    traced = None
+    reset_s = 0.0
+    try:
+        t0 = time.perf_counter()
+        reqs = [s.submit(p, t["new"]) for p in prompts[:t["first"]]]
+        steps = 0
+        while not s.idle or steps < 2:
+            if steps == 2 and len(reqs) < t["streams"]:
+                reqs += [s.submit(p, t["new"])
+                         for p in prompts[t["first"]:]]
+            steps += 1
+            if steps == traced_round:
+                host, kern, _ = profiled(s.step)
+                traced = (host, kern)
+            else:
+                s.step()
+            if steps in resets:
+                r0 = time.perf_counter()
+                reset.device_reset()
+                reset_s += time.perf_counter() - r0
+        torch.cuda.synchronize()
+        rep = s.report(time.perf_counter() - t0)
+        rep["reset_s"] = round(reset_s, 3)
+        check(all(r.state is sched.RequestState.FINISHED for r in reqs),
+              f"scheduler oversub={oversub}: a stream did not finish")
+        tokens = np.stack([r.tokens for r in reqs])
+    finally:
+        s.close()
+    return tokens, rep, traced
+
+
+def phase_sched(cfg, params, gen):
+    """The Scheduler at full width: runs A (oversub 1), A' (A with three
+    forced device resets), B (oversub 2, preempting) and T (A with one
+    round traced, untimed)."""
+    from open_gpu_kernel_modules_tpu_torch.ops import (flash_attention,
+                                                       paged_attention)
+    t = SCHED
+    prompts = torch.randint(0, cfg.vocab_size, (t["streams"], t["prompt"]),
+                            generator=gen, device="cuda").cpu().numpy()
+    log(f"scheduler: {t}; device resets after rounds {SCHED_RESETS} of "
+        f"run A'")
+    torch.cuda.synchronize()
+    reset_counts()
+    runs = {"A": sched_run(cfg, params, prompts, 1),
+            "A'": sched_run(cfg, params, prompts, 1, SCHED_RESETS),
+            "B": sched_run(cfg, params, prompts, 2)}
+    trace = sched_run(cfg, params, prompts, 1,
+                      traced_round=SCHED_PROFILED_ROUND)
+    launches = paged_attention.launches
+    rounds = sum(rep["rounds"] for _, rep, _ in runs.values()) \
+        + trace[1]["rounds"]
+    expect = cfg.num_layers * t["tokens_per_round"] * rounds
+    check(launches == expect, f"scheduler: paged decode launched {launches} "
+          f"times, expected {expect} ({rounds} rounds)")
+    check(flash_attention.launches == 0 and flash_attention.rows_launches == 0,
+          "scheduler launched a flash kernel")
+    for name, (tokens, rep, _) in runs.items():
+        log(f"scheduler {name}: " + json.dumps(
+            {k: v for k, v in rep.items() if k != "slo"}))
+        check(tokens.shape == (t["streams"], t["new"]),
+              f"scheduler {name}: tokens shape {tokens.shape}")
+        check(bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()),
+              f"scheduler {name}: token out of vocabulary")
+        check(rep["finished"] == t["streams"],
+              f"scheduler {name}: {rep['finished']} streams finished")
+    a, a2, b = (runs[k] for k in ("A", "A'", "B"))
+    check(a2[1]["device_resets_observed"] >= len(SCHED_RESETS),
+          f"scheduler A': observed {a2[1]['device_resets_observed']} resets")
+    check(bool((a2[0] == a[0]).all()),
+          "scheduler: tokens through device resets differ from run A's")
+    check(bool((trace[0] == a[0]).all()),
+          "scheduler: tokens of the traced run T differ from run A's")
+    check(b[1]["preempted"] >= 1, "scheduler B: oversub 2 never preempted")
+    check(b[1]["restored"] == b[1]["preempted"],
+          f"scheduler B: restored {b[1]['restored']} of "
+          f"{b[1]['preempted']} preempted")
+    # Across batch buckets bf16 cuBLAS and B1's split plan may round
+    # differently, so B is held to A only where batches match (A and A').
+    same = (b[0] == a[0])
+    log(f"scheduler: B against A: {int(same.all(axis=1).sum())} of "
+        f"{t['streams']} streams equal, {float(same.mean()):.3f} of tokens")
+    for name, (_, rep, _) in runs.items():
+        log(f"scheduler {name}: agg_toks_per_s {rep['agg_toks_per_s']}, "
+            f"p50_token_ms {rep['p50_token_ms']}, p99_token_ms "
+            f"{rep['p99_token_ms']}, preempted {rep['preempted']}, restored "
+            f"{rep['restored']}, rounds {rep['rounds']}, wall_s "
+            f"{rep['wall_s']}, reset_s {rep['reset_s']}")
+    host, kern = trace[2]
+    busy = "not measured" if kern is None else f"{kern / host:.3f}"
+    log(f"scheduler T round {SCHED_PROFILED_ROUND} (profiled): {host:.1f} ms "
+        f"host clock, kernels {kern if kern is None else round(kern, 3)} ms; "
+        f"device busy share {busy}")
+    # The same round's decode without the profiler: run A's median token
+    # time over a round's tokens.
+    a_round = a[1]["p50_token_ms"] * t["tokens_per_round"]
+    log(f"scheduler: A's median round {a_round:.1f} ms (no profiler); "
+        f"device busy share against it "
+        f"{'not measured' if kern is None else f'{kern / a_round:.3f}'}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -698,9 +850,12 @@ def main() -> int:
     log(f"params: Llama-3-8B widths, {cfg.num_layers} layers, bf16, "
         f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB, "
         f"{time.perf_counter() - t0:.1f} s")
+    # B1's main-path launches: dense `generate`, tiered `decode_rounds`
+    # and the Scheduler's rounds, each path's count read from zero.
     b1_launches = phase_serving(cfg, params, gen)
     b2_launches = phase_flash_forward(cfg, params, gen)
     b1_launches += phase_tiered(cfg, params, gen)
+    b1_launches += phase_sched(cfg, params, gen)
 
     # Which body each kernel runs per dtype at the main shapes: all three
     # take the tensor cores in bf16 and keep FMAs in fp32.

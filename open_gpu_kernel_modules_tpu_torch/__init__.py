@@ -12,8 +12,12 @@ to find:
 - ``models.convert`` — JAX parameter trees (as numpy) -> torch tensors;
 - ``ops``            — hand-written CUDA kernels for Hopper (``ops/csrc``),
   each beside its plain PyTorch version;
-- ``uvm``, ``runtime`` — the port's own ctypes bindings to the native
-  engine (``native/``, ``libtpurm.so``), the parts the tiered cache needs.
+- ``runtime.sched``  — the continuous-batching serving ``Scheduler`` over
+  the tiered cache (admission, preemption and restore, device-reset
+  recovery, tenant QoS, per-request flow and SLO accounting);
+- ``uvm``, ``runtime``, ``utils`` — the port's own ctypes bindings to the
+  native engine (``native/``, ``libtpurm.so``), the parts the tiered cache
+  and the scheduler need.
 
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"`` (see ``device.resolve``).

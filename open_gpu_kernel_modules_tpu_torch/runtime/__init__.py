@@ -1,1 +1,2 @@
-"""Bindings to the native tpurm core that the port needs (its own copies)."""
+"""The native library loader (``native``) and the serving scheduler
+(``sched``)."""

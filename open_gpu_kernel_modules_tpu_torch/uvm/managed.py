@@ -2,8 +2,8 @@
 
 The port's own copy of the part of the JAX package's ``uvm/managed.py``
 that the tiered KV backing and its tests reach, with the same names:
-``Tier``, ``VaSpace``, ``ManagedBuffer``, ``ResidencyInfo``, ``FaultStats``
-and ``fault_stats``.
+``Tier``, ``VaSpace``, ``ManagedBuffer``, ``ResidencyInfo``, ``FaultStats``,
+``fault_stats`` and ``tenant_configure``.
 
 A managed buffer's ``view`` is a numpy array over HOST memory that the
 engine protects and services through its SIGSEGV fault handler: plain CPU
@@ -132,6 +132,8 @@ def _lib() -> ctypes.CDLL:
     lib.uvmResidencyInfo.restype = u32
     lib.uvmFaultStatsGet.argtypes = [ctypes.POINTER(_FaultStats)]
     lib.uvmFaultStatsGet.restype = None
+    lib.tpurmBrokerTenantConfigure.argtypes = [u32, u32, u64, u64]
+    lib.tpurmBrokerTenantConfigure.restype = u32
 
     _bound = lib
     return lib
@@ -154,6 +156,16 @@ def fault_stats() -> FaultStats:
                       raw.migratedBytes, raw.evictions, raw.serviceNsP50,
                       raw.serviceNsP95, raw.wakeNsP50, raw.wakeNsP95,
                       raw.svcOneNsP50, raw.svcOneNsP95)
+
+
+def tenant_configure(tenant_id: int, priority: int = 100) -> None:
+    """Create-or-update a QoS tenant (uvm.h tenant API) with its eviction
+    priority (higher = keep longer) and no HBM/CXL backing-page quota.
+    Arena pressure evicts lower priorities' cold blocks first, then plain
+    LRU order.  Under ``TPURM_BROKER`` the call forwards to the engine
+    host."""
+    _check(_lib().tpurmBrokerTenantConfigure(tenant_id, priority, 0, 0),
+           "tpurmBrokerTenantConfigure")
 
 
 class ManagedBuffer:

@@ -1,12 +1,20 @@
 """tpumemring — io_uring-style async memory-op rings (native/src/memring.c).
 
 The port's own copy of the part of the JAX package's ``uvm/memring.py``
-that the tiered KV backing uses: a ``MemRing`` bound to a VA space that
-stages device-access PREFETCH ops, publishes them with one doorbell, waits
-for the batch and reaps per-op completions.  The native worker pool
-coalesces contiguous spans into block-granular engine calls.  Errors come
-back per op; ``completions(check=True)`` raises :class:`native.RmError` on
-the first error completion.
+that the tiered KV backing and the scheduler use: a ``MemRing`` bound to a
+VA space that stages device-access PREFETCH and tier-demote EVICT ops,
+publishes them with one doorbell, waits for the batch and reaps per-op
+completions.  The native worker pool coalesces contiguous spans into
+block-granular engine calls.  Errors come back per op;
+``completions(check=True)`` raises :class:`native.RmError` on the first
+error completion.
+
+Ordering: every staged op gets a submission seq (:attr:`MemRing.last_seq`
+right after its prep), and a later op may carry up to 4 ``deps=[...]``
+handles built with :func:`dep`.  ``dep(ring, seq, ordered=True)`` waits
+for the ring's retirement frontier to pass ``seq`` (every op up to it
+retired): the scheduler's restore prefetches wait so on the victims'
+demotes.
 """
 
 from __future__ import annotations
@@ -17,6 +25,7 @@ import enum
 from typing import List, Optional
 
 from ..runtime import native
+from .managed import Tier
 
 
 class Op(enum.IntEnum):
@@ -32,6 +41,22 @@ class Op(enum.IntEnum):
 
 
 NDEPS = 4                      # dep slots per SQE (memring.h)
+DEP_SEQ_BITS = 47
+DEP_ORDERED_FLAG = 1 << DEP_SEQ_BITS
+DEP_RING_SHIFT = 48
+
+
+def dep(ring, seq: int, ordered: bool = False) -> int:
+    """A dependency handle on (``ring``, ``seq``): ``ring`` is a
+    :class:`MemRing` or a raw ring id (``MemRing.ring_id``), ``seq`` the
+    target op's submission seq (``MemRing.last_seq`` after its prep).
+    ``ordered=True`` waits for the retirement frontier to pass the target:
+    every seq up to it retired."""
+    rid = ring.ring_id if isinstance(ring, MemRing) else int(ring)
+    h = ((rid & 0xFFFF) << DEP_RING_SHIFT) | (seq & ((1 << DEP_SEQ_BITS) - 1))
+    if ordered:
+        h |= DEP_ORDERED_FLAG
+    return h
 
 
 class _Sqe(ctypes.Structure):
@@ -114,6 +139,8 @@ def _lib() -> ctypes.CDLL:
     lib.tpurmMemringWaitDrain.restype = u32
     lib.tpurmMemringSqSpace.argtypes = [vp]
     lib.tpurmMemringSqSpace.restype = u32
+    lib.tpurmMemringId.argtypes = [vp]
+    lib.tpurmMemringId.restype = u32
     _bound = lib
     return lib
 
@@ -140,20 +167,47 @@ class MemRing:
                "tpurmMemringCreate")
         self._handle = handle
         self._auto_cookie = 0
+        self._last_seq: Optional[int] = None
 
-    def _prep(self, sqe: _Sqe) -> int:
+    def _prep(self, sqe: _Sqe, deps=None) -> int:
         self._auto_cookie += 1
         sqe.userData = self._auto_cookie
+        if deps:
+            if len(deps) > NDEPS:
+                raise ValueError(f"at most {NDEPS} deps per op")
+            for i, d in enumerate(deps):
+                sqe.deps[i] = d
+            sqe.depCount = len(deps)
         _check(self._lib.tpurmMemringPrep(self._handle, ctypes.byref(sqe)),
                "tpurmMemringPrep")
+        self._last_seq = sqe.seq
         return sqe.userData
 
+    @property
+    def ring_id(self) -> int:
+        """This ring's dep-handle identity (for :func:`dep`)."""
+        return self._lib.tpurmMemringId(self._handle)
+
+    @property
+    def last_seq(self) -> Optional[int]:
+        """Submission seq of the most recently prepped op."""
+        return self._last_seq
+
     def prefetch(self, addr: int, length: int, dev: int = 0,
-                 flow: int = 0) -> int:
+                 deps=None, flow: int = 0) -> int:
         """Stage a device-access (read) prefetch: fault the span onto
-        ``dev``'s HBM through the batch service loop.  ``flow`` tags the op
-        with a tpuflow request identity.  Returns the op's cookie."""
+        ``dev``'s HBM through the batch service loop.  ``deps`` holds up to
+        4 :func:`dep` handles the op waits on; ``flow`` tags the op with a
+        tpuflow request identity.  Returns the op's cookie."""
         s = _Sqe(opcode=Op.PREFETCH, devInst=dev, addr=addr, len=length,
+                 flowId=flow)
+        return self._prep(s, deps)
+
+    def evict(self, addr: int, length: int, tier: Tier,
+              flow: int = 0) -> int:
+        """Stage a tier demote of [addr, addr+length) to ``tier`` (HOST or
+        CXL only)."""
+        s = _Sqe(opcode=Op.EVICT, dstTier=int(tier), addr=addr, len=length,
                  flowId=flow)
         return self._prep(s)
 

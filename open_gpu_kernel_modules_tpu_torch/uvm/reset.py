@@ -1,18 +1,59 @@
-"""Device generation of the native reset engine (native/src/reset.c).
+"""Full-device reset and the device generation (native/src/reset.c).
 
-The port's copy of the one call of the JAX package's ``uvm/reset.py`` that
-the tiered KV backing uses: ``generation()``, which bumps once per completed
-full-device reset.  ``ManagedKVBacking.read_pages`` retries a batch the
-generation fence rejected only while this keeps advancing.
+The port's copy of the part of the JAX package's ``uvm/reset.py`` that the
+tiered KV backing and the scheduler use: ``generation()``, which bumps once
+per completed full-device reset; ``device_reset()``, which forces one
+(quiesce, generation bump, restore); and ``stats()``.
+``ManagedKVBacking.read_pages`` retries a batch the generation fence
+rejected only while the generation keeps advancing; the scheduler polls it
+every round and parks and restores its running sequences when it moved.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 from ..runtime import native
 
 _bound = None
+
+
+class _Stats(ctypes.Structure):
+    _fields_ = [
+        ("generation", ctypes.c_uint64),
+        ("resets", ctypes.c_uint64),
+        ("failedResets", ctypes.c_uint64),
+        ("injectedResets", ctypes.c_uint64),
+        ("watchdogNudges", ctypes.c_uint64),
+        ("watchdogRcResets", ctypes.c_uint64),
+        ("watchdogDeviceResets", ctypes.c_uint64),
+        ("watchdogEvacuations", ctypes.c_uint64),
+        ("lastMttrNs", ctypes.c_uint64),
+        ("lastQuiesceNs", ctypes.c_uint64),
+        ("lastRestoreNs", ctypes.c_uint64),
+        ("mttrSumNs", ctypes.c_uint64),
+        ("staleCompletions", ctypes.c_uint64),
+    ]
+
+
+@dataclasses.dataclass(frozen=True)
+class ResetStats:
+    """Snapshot of tpurm/reset.h TpuResetStats."""
+
+    generation: int
+    resets: int
+    failed_resets: int
+    injected_resets: int
+    watchdog_nudges: int
+    watchdog_rc_resets: int
+    watchdog_device_resets: int
+    watchdog_evacuations: int
+    last_mttr_ns: int
+    last_quiesce_ns: int
+    last_restore_ns: int
+    mttr_sum_ns: int
+    stale_completions: int
 
 
 def _lib() -> ctypes.CDLL:
@@ -21,6 +62,10 @@ def _lib() -> ctypes.CDLL:
         lib = native.load()
         lib.tpurmDeviceGeneration.argtypes = []
         lib.tpurmDeviceGeneration.restype = ctypes.c_uint64
+        lib.tpurmDeviceReset.argtypes = []
+        lib.tpurmDeviceReset.restype = ctypes.c_uint32
+        lib.tpurmResetStats.argtypes = [ctypes.POINTER(_Stats)]
+        lib.tpurmResetStats.restype = None
         _bound = lib
     return _bound
 
@@ -28,3 +73,19 @@ def _lib() -> ctypes.CDLL:
 def generation() -> int:
     """The device-wide generation (bumps once per completed reset)."""
     return _lib().tpurmDeviceGeneration()
+
+
+def device_reset() -> None:
+    """Force a coordinated full-device reset (quiesce -> reset -> restore);
+    concurrent callers coalesce onto one reset.  RmError if it could not
+    run."""
+    st = _lib().tpurmDeviceReset()
+    if st != 0:
+        raise native.RmError(st, "tpurmDeviceReset")
+
+
+def stats() -> ResetStats:
+    """Reset and watchdog statistics."""
+    raw = _Stats()
+    _lib().tpurmResetStats(ctypes.byref(raw))
+    return ResetStats(*(getattr(raw, f) for f, _ in _Stats._fields_))

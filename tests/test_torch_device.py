@@ -62,6 +62,12 @@ def test_port_imports_no_jax():
             "import open_gpu_kernel_modules_tpu_torch.uvm.managed\n"
             "import open_gpu_kernel_modules_tpu_torch.uvm.memring\n"
             "import open_gpu_kernel_modules_tpu_torch.uvm.reset\n"
+            "import open_gpu_kernel_modules_tpu_torch.uvm.inject\n"
+            "import open_gpu_kernel_modules_tpu_torch.uvm.journal\n"
+            "import open_gpu_kernel_modules_tpu_torch.uvm.hot\n"
+            "import open_gpu_kernel_modules_tpu_torch.uvm.shield\n"
+            "import open_gpu_kernel_modules_tpu_torch.utils\n"
+            "import open_gpu_kernel_modules_tpu_torch.runtime.sched\n"
             "bad = [m for m in sys.modules if m in ('jax', 'ml_dtypes') or "
             "m.startswith(('jax.', 'ml_dtypes.', "
             "'open_gpu_kernel_modules_tpu.')) or "

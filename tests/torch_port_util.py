@@ -17,16 +17,17 @@ from open_gpu_kernel_modules_tpu_torch.models import llama as tllama
 from open_gpu_kernel_modules_tpu_torch.models.convert import params_from_jax
 
 
-def tiny_pair(vocab_size=256, max_seq_len=128, seed=0):
-    """(jax cfg, jax params, torch cfg, torch params) for tiny at fp32."""
+def tiny_pair(vocab_size=256, max_seq_len=128, seed=0, **overrides):
+    """(jax cfg, jax params, torch cfg, torch params) for tiny at fp32;
+    ``overrides`` replace fields of both configs."""
     jcfg = jllama.LlamaConfig.tiny(vocab_size=vocab_size,
                                    max_seq_len=max_seq_len)
-    jcfg = dataclasses.replace(jcfg, dtype=jnp.float32)
+    jcfg = dataclasses.replace(jcfg, dtype=jnp.float32, **overrides)
     jparams = jllama.init_params(jcfg, jax.random.key(seed))
     tcfg = dataclasses.replace(
         tllama.LlamaConfig.tiny(vocab_size=vocab_size,
                                 max_seq_len=max_seq_len),
-        dtype=torch.float32)
+        dtype=torch.float32, **overrides)
     tparams = params_from_jax(jax.tree.map(np.asarray, jparams),
                               device="cpu")
     return jcfg, jparams, tcfg, tparams
