@@ -20,7 +20,9 @@ width (random weights from a seed):
    main grid with one live token per sequence (the latency floor), each
    with its splits, time, bound, SDPA's time and the host's enqueue time;
 3. flash attention (B2, ``impl="grid"``) against its reference, causal and
-   full, odd length, both layouts, with each case's TFLOP/s;
+   full, odd length, both layouts, with each case's TFLOP/s; and at the
+   head_dims the wrapper zero-pads (16, 32, 96), bf16 and fp32, with the
+   padding copies' time;
 4. row-resident flash attention (B3, ``impl="rows"``) on B2's cases plus a
    short row that fits shared memory whole; its entry point driven once at
    its two main shapes (S=256 and S=2048);
@@ -42,7 +44,24 @@ width (random weights from a seed):
    preempted stream must be restored, and an untimed run T, A again with one
    steady round traced by the profiler (its tokens must equal A's); B1 must
    launch once per layer per decode step of every round, and no flash
-   kernel.
+   kernel;
+9. multichip (BASELINE config #5): the KV pool striped over four native
+   device arenas (``TPUMEM_FAKE_TPU_COUNT=4``, set before the engine loads)
+   and moved over its ICI model, in pages of 16 tokens (a page's record is
+   one PMM chunk, at most the engine's 2 MiB block).  M1: phase 7's decode
+   over ``make_multichip_cache`` with the direct 0<->1 link failed before
+   the last turn; its tokens must equal an ``oversub=4`` managed tiered run
+   of the same shape, records must cross ICI both ways, and the 0->3 detour
+   must carry traffic.  M2_0
+   and M2: the ``Scheduler`` over the pool on phase 8's shape at oversub 2,
+   without and with evacuations (1->2, a 2->3 that the ``vac.migrate``
+   inject site forces to abort, 0->1, then chip 3 on the reset watchdog's
+   request); M3: disaggregated (``DisaggConfig(decode_devs=(1, 2, 3))``)
+   through a device reset and an evacuation of a decode home.  Every stream
+   must finish, committed moves empty their source, tenant charges follow
+   the homes, vac's inject site reconciles; tokens decoded before the first
+   evacuation must equal M2_0's (all of them when every round's batch
+   matched); B1 must launch once per layer per decode step, no flash kernel.
 
 Prints one ``{"kernels": [...]}`` line with each kernel's launches on the
 main path, its error against the plain version, its time, its bound, the
@@ -381,6 +400,14 @@ def flash_case(b, h, s, d, causal, layout, dtype, gen, copies=2,
     lib = cuda_ms([lambda a=a: sdpa(*a, is_causal=causal) for a in lib_args])
     rec = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
                bound_by=by, library_ms=lib)
+    if d not in (64, 128):
+        # The wrapper zero-pads such a head_dim up to the kernel's width and
+        # cuts the output back: the cost of those copies alone.
+        width = 64 if d <= 64 else 128
+        rec["pad_ms"] = cuda_ms([lambda a=a: (
+            [torch.nn.functional.pad(x, (0, width - d)) for x in a],
+            torch.nn.functional.pad(a[0], (0, width - d))[..., :d]
+            .contiguous()) for a in args])
     log(f"{'B3 flash rows' if impl == 'rows' else 'B2 flash'} "
         f"{str(dtype)[6:]} ({BODY[dtype]}) B={b} H={h} S={s} D={d} "
         f"causal={causal} {layout}: " + json.dumps(rec)
@@ -397,13 +424,20 @@ FLASH_CASES = [(1, 32, 2048, 128, True, "bshd", torch.bfloat16),
                (2, 8, 1000, 64, False, "bhsd", torch.bfloat16),
                (1, 8, 1000, 128, True, "bhsd", torch.float32),
                (1, 8, 333, 64, False, "bshd", torch.float32)]
+# The head_dims the kernels take by zero-padding (16 and 32 run at 64, 96 at
+# 128; tiny's head_dim is 16), each in bf16 and fp32.
+PAD_CASES = [(1, 8, 1000, d, causal, layout, dtype)
+             for d, causal, layout in ((16, True, "bshd"),
+                                       (32, False, "bhsd"),
+                                       (96, True, "bshd"))
+             for dtype in (torch.bfloat16, torch.float32)]
 # B3's own short case: a row that fits shared memory whole.
 ROWS_SHORT = (4, 32, 256, 128, True, "bshd", torch.bfloat16)
 
 
 def phase_flash():
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
-    recs = [flash_case(*c, gen) for c in FLASH_CASES]
+    recs = [flash_case(*c, gen) for c in FLASH_CASES + PAD_CASES]
     return recs[0]
 
 
@@ -424,7 +458,7 @@ def phase_flash_rows():
     check(rows_segment_tokens(2048, 2048, 128, torch.bfloat16, True) < 2048,
           "B3: the S=2048 row was expected to need segments")
     recs = [flash_case(*c, gen, impl="rows") for c in [ROWS_SHORT]
-            + FLASH_CASES]
+            + FLASH_CASES + PAD_CASES]
 
     reset_counts()
     for b, h, s, d, causal, layout, dtype in (ROWS_SHORT, FLASH_CASES[0]):
@@ -547,41 +581,30 @@ TIERED = dict(seqs=16, prompt=512, max_len=576, page=64, group=4,
               tokens_per_turn=8, turns=2)
 
 
-def tiered_run(cfg, params, prompts, oversub):
-    """One tiered serving run: prefill every group, then decode_rounds.
-    Returns (last tokens, stats, record of host-side measurements)."""
-    from open_gpu_kernel_modules_tpu_torch.models import serving
-    from open_gpu_kernel_modules_tpu_torch.uvm import fault_stats
-    t = TIERED
-    groups = [list(range(i, i + t["group"]))
-              for i in range(0, t["seqs"], t["group"])]
-    t0 = time.perf_counter()
-    cache = serving.TieredKVCache(cfg, t["seqs"], t["max_len"],
-                                  page_size=t["page"], oversub=oversub)
-    setup_s = time.perf_counter() - t0
-    # Host time of every activation and prefetch, of the backing's page
-    # reads inside them and of the UVM fault pass inside those; and whether
-    # the decode queued before a prefetch was still running when the
-    # prefetch returned (the copy then ran fully under the decode).
-    act_ms, commit_ms, pre_ms, read_ms, fault_ms, under = ([] for _ in
-                                                           range(6))
-    activate, prefetch = cache.activate, cache.prefetch
-    backing = cache.backing
-    read_pages, fault_pages = backing.read_pages, backing._ring_fault_pages
+def _timed(fn, into):
+    def call(*a, **k):
+        t1 = time.perf_counter()
+        out = fn(*a, **k)
+        into.append((time.perf_counter() - t1) * 1e3)
+        return out
+    return call
 
-    def timed(fn, into):
-        def call(*a, **k):
-            t1 = time.perf_counter()
-            out = fn(*a, **k)
-            into.append((time.perf_counter() - t1) * 1e3)
-            return out
-        return call
+
+def time_activations(cache) -> dict:
+    """Host-clock every activation (``act`` without a staged prefetch,
+    ``commit`` with one), every prefetch (``pre``) and the backing's page
+    reads inside them (``read``); ``under`` records whether the decode
+    queued before a prefetch was still running when the prefetch returned
+    (its copy then ran fully under the decode).  Returns the sample lists,
+    which fill as the cache runs."""
+    ms = {k: [] for k in ("act", "commit", "pre", "read", "under")}
+    activate, prefetch = cache.activate, cache.prefetch
 
     def timed_activate(*a, staged=None, **k):
         t1 = time.perf_counter()
         view = activate(*a, staged=staged, **k)
-        ms = (time.perf_counter() - t1) * 1e3
-        (act_ms if staged is None else commit_ms).append(ms)
+        ms["act" if staged is None else "commit"].append(
+            (time.perf_counter() - t1) * 1e3)
         return view
 
     def timed_prefetch(*a, **k):
@@ -589,13 +612,47 @@ def tiered_run(cfg, params, prompts, oversub):
         busy.record()
         t1 = time.perf_counter()
         staged = prefetch(*a, **k)
-        pre_ms.append((time.perf_counter() - t1) * 1e3)
-        under.append(not busy.query())
+        ms["pre"].append((time.perf_counter() - t1) * 1e3)
+        ms["under"].append(not busy.query())
         return staged
 
     cache.activate, cache.prefetch = timed_activate, timed_prefetch
-    backing.read_pages = timed(read_pages, read_ms)
-    backing._ring_fault_pages = timed(fault_pages, fault_ms)
+    cache.backing.read_pages = _timed(cache.backing.read_pages, ms["read"])
+    return ms
+
+
+def activation_record(ms: dict) -> dict:
+    def mean(k):
+        return sum(ms[k]) / max(len(ms[k]), 1)
+    return dict(
+        unstaged_activations=len(ms["act"]),
+        unstaged_activate_host_ms_mean=mean("act"),
+        staged_activations=len(ms["commit"]),
+        staged_activate_host_ms_mean=mean("commit"),
+        prefetch_host_ms_mean=mean("pre"),
+        page_reads=len(ms["read"]), read_pages_ms_mean=mean("read"),
+        prefetches_under_decode=f"{sum(ms['under'])} of {len(ms['under'])}")
+
+
+def tiered_run(cfg, params, prompts, oversub, page=TIERED["page"]):
+    """One tiered serving run in pages of ``page`` tokens: prefill every
+    group, then decode_rounds.  Returns (last tokens, stats, record of
+    host-side measurements)."""
+    from open_gpu_kernel_modules_tpu_torch.models import serving
+    from open_gpu_kernel_modules_tpu_torch.uvm import fault_stats
+    t = TIERED
+    groups = [list(range(i, i + t["group"]))
+              for i in range(0, t["seqs"], t["group"])]
+    t0 = time.perf_counter()
+    cache = serving.TieredKVCache(cfg, t["seqs"], t["max_len"],
+                                  page_size=page, oversub=oversub)
+    setup_s = time.perf_counter() - t0
+    # Host time of every activation and prefetch, of the backing's page
+    # reads inside them and of the UVM fault pass inside those.
+    ms = time_activations(cache)
+    fault_ms = []
+    backing = cache.backing
+    backing._ring_fault_pages = _timed(backing._ring_fault_pages, fault_ms)
     try:
         t0 = time.perf_counter()
         for g in groups:
@@ -603,7 +660,7 @@ def tiered_run(cfg, params, prompts, oversub):
         torch.cuda.synchronize()
         prefill_s = time.perf_counter() - t0
         before = dict(cache.stats)
-        for samples in (act_ms, commit_ms, read_ms, fault_ms):
+        for samples in (ms["act"], ms["commit"], ms["read"], fault_ms):
             del samples[:]
         faults = fault_stats()
         total, secs = serving.decode_rounds(
@@ -617,19 +674,11 @@ def tiered_run(cfg, params, prompts, oversub):
             tok_per_s=total / secs,
             decode_upload_bytes=stats["upload_bytes"] - before["upload_bytes"],
             decode_uploads=stats["uploads"] - before["uploads"],
-            unstaged_activations=len(act_ms),
-            unstaged_activate_host_ms_mean=sum(act_ms) / max(len(act_ms), 1),
-            staged_activations=len(commit_ms),
-            staged_activate_host_ms_mean=sum(commit_ms) / max(
-                len(commit_ms), 1),
-            prefetch_host_ms_mean=sum(pre_ms) / max(len(pre_ms), 1),
-            page_reads=len(read_ms), read_pages_ms_mean=sum(read_ms) / max(
-                len(read_ms), 1),
+            **activation_record(ms),
             fault_pass_ms_mean=sum(fault_ms) / max(len(fault_ms), 1),
             uvm_cpu_faults=after.faults_cpu - faults.faults_cpu,
             uvm_device_faults=after.faults_device - faults.faults_device,
             uvm_migrated_bytes=after.migrated_bytes - faults.migrated_bytes,
-            prefetches_under_decode=f"{sum(under)} of {len(under)}",
             memring=cache.backing.ring is not None)
         tokens = cache.last_token.copy()
     finally:
@@ -693,7 +742,9 @@ def phase_tiered(cfg, params, gen):
             log(f"tiered oversub={o}: decode kernels {turn_ms:.3f} ms a turn "
                 f"(profiler); device busy share of decode_rounds about "
                 f"{turns * turn_ms / (rec['decode_s'] * 1e3):.3f}")
-    return launches
+    # Phase 9 decodes the same prompts on the same schedule over the ICI
+    # pool and is held to the oversub=4 run.
+    return launches, prompts, runs[4]
 
 
 # ------------------------------------------------------------------ phase 8
@@ -712,14 +763,50 @@ SCHED_RESETS = (2, 4, 6)        # run A': device resets after these rounds
 SCHED_PROFILED_ROUND = 6
 
 
+def sched_drive(s, prompts, after=None, traced_round=0):
+    """Drive a Scheduler the way its users would: submit 5 streams, step
+    twice, submit 3 more, step until idle.  ``after[r](s)`` runs after round
+    r; ``traced_round`` runs that round under the profiler (the run's wall
+    then includes the profiler's cost: it is not a throughput).  Returns
+    (requests, wall s, (host ms, kernel ms) of the traced round or None,
+    the decode batch of every round that decoded)."""
+    t = SCHED
+    after = after or {}
+    traced = None
+    batches = []
+    step = s.step
+
+    def counted_step():
+        before = s.stats["decoded_tokens"]
+        out = step()
+        n = (s.stats["decoded_tokens"] - before) // s.tokens_per_round
+        if n:
+            batches.append(n)
+        return out
+    s.step = counted_step
+    t0 = time.perf_counter()
+    reqs = [s.submit(p, t["new"]) for p in prompts[:t["first"]]]
+    steps = 0
+    while not s.idle or steps < 2:
+        if steps == 2 and len(reqs) < t["streams"]:
+            reqs += [s.submit(p, t["new"]) for p in prompts[t["first"]:]]
+        steps += 1
+        if steps == traced_round:
+            host, kern, _ = profiled(s.step)
+            traced = (host, kern)
+        else:
+            s.step()
+        if steps in after:
+            after[steps](s)
+    torch.cuda.synchronize()
+    return reqs, time.perf_counter() - t0, traced, batches
+
+
 def sched_run(cfg, params, prompts, oversub, resets=(), traced_round=0):
-    """One scheduler run: submit 5 streams, step twice, submit 3 more, step
-    until idle; ``resets`` force a device reset after those rounds, and
-    ``traced_round`` runs that round under the profiler (the run's report
-    then includes the profiler's cost: its wall is not a throughput).
-    Returns (tokens [streams, new], report with ``reset_s``, the host time
-    spent inside the forced resets, and (host ms, kernel ms) of the traced
-    round or None)."""
+    """One scheduler run over a managed tiered cache (``sched_drive``);
+    ``resets`` force a device reset after those rounds.  Returns (tokens
+    [streams, new], report with ``reset_s``, the host time spent inside the
+    forced resets, and (host ms, kernel ms) of the traced round or None)."""
     from open_gpu_kernel_modules_tpu_torch.runtime import sched
     from open_gpu_kernel_modules_tpu_torch.uvm import reset
     t = SCHED
@@ -727,29 +814,17 @@ def sched_run(cfg, params, prompts, oversub, resets=(), traced_round=0):
                         max_len=t["max_len"], page_size=t["page"],
                         oversub=oversub,
                         tokens_per_round=t["tokens_per_round"])
-    traced = None
-    reset_s = 0.0
+    reset_s = [0.0]
+
+    def timed_reset(_s):
+        r0 = time.perf_counter()
+        reset.device_reset()
+        reset_s[0] += time.perf_counter() - r0
     try:
-        t0 = time.perf_counter()
-        reqs = [s.submit(p, t["new"]) for p in prompts[:t["first"]]]
-        steps = 0
-        while not s.idle or steps < 2:
-            if steps == 2 and len(reqs) < t["streams"]:
-                reqs += [s.submit(p, t["new"])
-                         for p in prompts[t["first"]:]]
-            steps += 1
-            if steps == traced_round:
-                host, kern, _ = profiled(s.step)
-                traced = (host, kern)
-            else:
-                s.step()
-            if steps in resets:
-                r0 = time.perf_counter()
-                reset.device_reset()
-                reset_s += time.perf_counter() - r0
-        torch.cuda.synchronize()
-        rep = s.report(time.perf_counter() - t0)
-        rep["reset_s"] = round(reset_s, 3)
+        reqs, wall, traced, _ = sched_drive(
+            s, prompts, {r: timed_reset for r in resets}, traced_round)
+        rep = s.report(wall)
+        rep["reset_s"] = round(reset_s[0], 3)
         check(all(r.state is sched.RequestState.FINISHED for r in reqs),
               f"scheduler oversub={oversub}: a stream did not finish")
         tokens = np.stack([r.tokens for r in reqs])
@@ -829,12 +904,354 @@ def phase_sched(cfg, params, gen):
     return launches
 
 
+# ------------------------------------------------------------------ phase 9
+
+# BASELINE config #5: the KV pool striped round-robin over the native engine's
+# device arenas (host memory, TPUMEM_FAKE_TPU_COUNT of them) and moved over
+# its ICI model; the decode runs on the card.  A page's record (K and V of
+# every layer) is one PMM chunk, which the engine caps at its 2 MiB VA block
+# (uvmHbmChunkAlloc refuses more with TPU_ERR_INVALID_LIMIT), so the pool's
+# pages hold 16 tokens: 2 x 32 layers x 16 x 8 kv heads x 128 x bf16 = 2 MiB.
+# M1 is phase 7's shape at oversub 4 in those pages: 576 records, 288 MiB on
+# each arena plus 16 MiB of staging on device 0; its reference is a managed
+# tiered run at the same shape.  M2 and M3 are phase 8's at oversub 2: 320
+# records, 160 MiB an arena.
+ARENAS = 4
+MC_PAGE = 16
+MC_OVERSUB = 2                  # M2's and M3's slot pool: 160 of 320 pages
+# M2: after round 3 move chip 1 -> 2; after round 5 a move 2 -> 3 that the
+# vac.migrate inject site forces to abort; after round 7 move 0 -> 1, then
+# the reset watchdog evacuates chip 3 on synthetic health evidence.
+# M3 (disaggregated, decode homes 1-3): a device reset after round 2, the
+# move 1 -> 2 after round 4.
+WATCHDOG_DEADLINE_S = 30.0
+
+
+def multichip_decode(cfg, params, prompts):
+    """M1: prefill every group into the ICI-striped pool, then phase 7's
+    decode turns one decode_rounds call at a time, with the direct 0<->1
+    link failed before the last; then the victim ring drains home over ICI.
+    Returns (last tokens, record)."""
+    from open_gpu_kernel_modules_tpu_torch.models import multichip, serving
+    from open_gpu_kernel_modules_tpu_torch.runtime import ici
+    t = TIERED
+    groups = [list(range(i, i + t["group"]))
+              for i in range(0, t["seqs"], t["group"])]
+    t0 = time.perf_counter()
+    cache = multichip.make_multichip_cache(cfg, t["seqs"], t["max_len"],
+                                           MC_PAGE, oversub=4,
+                                           n_devices=ARENAS)
+    setup_s = time.perf_counter() - t0
+    backing = cache.backing
+    ms = time_activations(cache)
+    try:
+        t0 = time.perf_counter()
+        for g in groups:
+            serving.prefill_group(cfg, params, cache, g, prompts[g])
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        prefill_stats = dict(backing.stats)
+        for samples in (ms["act"], ms["commit"], ms["read"]):
+            del samples[:]
+        decoded, secs = 0, 0.0
+        for turn in range(t["turns"]):
+            if turn == t["turns"] - 1:
+                direct = next(li for li in range(ici.link_count(0))
+                              if ici.link_info(0, li).peer == 1)
+                before = backing.link_traffic()
+                ici.inject_link_failure(0, direct)
+                hops = ici.route_hops(0, 1)
+            n, dt = serving.decode_rounds(
+                cfg, params, cache, groups,
+                tokens_per_turn=t["tokens_per_turn"], turns=1)
+            decoded, secs = decoded + n, secs + dt
+        cache.drain_flushes()
+        torch.cuda.synchronize()
+        after = backing.link_traffic()
+        rec = dict(setup_s=setup_s, prefill_s=prefill_s,
+                   decode_tokens=decoded, decode_s=secs,
+                   tok_per_s=decoded / secs, detour_hops=hops,
+                   tx_0_to_3_after_failure=after["0->(3)"] - before["0->(3)"],
+                   prefill_ici=prefill_stats, ici=dict(backing.stats),
+                   **activation_record(ms))
+        tokens = cache.last_token.copy()
+    finally:
+        cache.close()
+    return tokens, rec
+
+
+def tenant_charges_match(backing) -> bool:
+    """Each arena's per-tenant device charges equal the records homed on it
+    (every stream here is tenant 0)."""
+    import ctypes
+    lib = backing._lib
+    lib.uvmTenantDevPages.argtypes = [ctypes.c_uint32, ctypes.c_uint32]
+    lib.uvmTenantDevPages.restype = ctypes.c_uint64
+    rows = {d: (lib.uvmTenantDevPages(0, d), len(backing.pages_homed(d)))
+            for d in range(backing.n_devices)}
+    log(f"  charged vs homed records per arena: {rows}")
+    return all(c == h for c, h in rows.values())
+
+
+def multichip_sched_run(cfg, params, prompts, after=None, disagg=None):
+    """One Scheduler run over a fresh ICI-striped pool at phase 8's shape
+    (``sched_drive``, with ``after`` actions).  Every evacuation is checked:
+    a committed one leaves nothing homed on its source.  Returns (tokens
+    [streams, new], report, decode batch of every round, tokens each stream
+    had decoded before the first evacuation, the scheduler's moves, blackout
+    and ship-leg lists)."""
+    from open_gpu_kernel_modules_tpu_torch.models import multichip
+    from open_gpu_kernel_modules_tpu_torch.runtime import sched
+    from open_gpu_kernel_modules_tpu_torch.uvm import vac
+    t = SCHED
+    # Earlier phases' resets and link failures left health evidence; only
+    # this run's own evacuations may move pages.
+    for d in range(ARENAS):
+        vac.clear(d)
+    cache = multichip.make_multichip_cache(cfg, t["max_seqs"], t["max_len"],
+                                           MC_PAGE, oversub=MC_OVERSUB,
+                                           n_devices=ARENAS)
+    s = sched.Scheduler(cfg, params, tokens_per_round=t["tokens_per_round"],
+                        cache=cache, disagg=disagg)
+    decoded_before = {}
+    moves = []
+    evacuate = s.evacuate_device
+
+    def checked_evacuate(src, dst=None, tenant=None):
+        if not decoded_before:
+            decoded_before.update({r.rid: r.decoded
+                                   for r in s._by_rid.values()})
+        rep = evacuate(src, dst, tenant)
+        if rep is not None:
+            check(rep.pages > 0 and s.cache.backing.pages_homed(src) == [],
+                  f"evacuation {src} -> {rep.dst} left pages on {src}")
+        moves.append((src, None if rep is None else rep.dst,
+                      0 if rep is None else rep.pages))
+        return rep
+    s.evacuate_device = checked_evacuate
+    try:
+        reqs, wall, _, batches = sched_drive(s, prompts, after)
+        rep = s.report(wall)
+        check(all(r.state is sched.RequestState.FINISHED for r in reqs),
+              "multichip scheduler: a stream did not finish")
+        check(tenant_charges_match(s.cache.backing),
+              "multichip scheduler: tenant charges differ from the homes")
+        rep["ici"] = dict(s.cache.backing.stats)
+        tokens = np.stack([r.tokens for r in reqs])
+        before = [decoded_before.get(r.rid, 0) for r in reqs]
+        extra = (list(s.evac_blackouts_s), list(s.disagg_ship_s))
+    finally:
+        s.close()
+    return tokens, rep, batches, before, moves, extra
+
+
+def compare_tokens(name, tokens, batches, before, ref):
+    """``name``'s tokens against M2_0's: those decoded before the run's first
+    evacuation must be equal; all of them when every round's decode batch
+    matched M2_0's (bf16 cuBLAS and B1's split plan round alike within a
+    batch bucket, apart across buckets)."""
+    ref_tokens, ref_batches = ref
+    for i, n in enumerate(before):
+        check(bool((tokens[i, :n] == ref_tokens[i, :n]).all()),
+              f"{name}: stream {i}'s first {n} tokens differ from M2_0's")
+    same = tokens == ref_tokens
+    differ = [i + 1 for i, (a, b) in enumerate(zip(batches, ref_batches))
+              if a != b]
+    matched = batches == ref_batches
+    log(f"multichip {name}: decode batch per round {batches} (M2_0 "
+        f"{ref_batches}); rounds that differ {differ}; tokens before the "
+        f"first evacuation {before}; {int(same.all(axis=1).sum())} of "
+        f"{len(tokens)} streams equal M2_0's, {float(same.mean()):.3f} of "
+        f"tokens")
+    if matched:
+        check(bool(same.all()), f"{name}: every round's batch matched "
+              f"M2_0's but the tokens differ")
+
+
+def phase_multichip(cfg, params, gen, tiered, smi):
+    """Config #5 at full width: M1 (ICI-striped tiered decode through a link
+    failure), M2_0 / M2 (the Scheduler over the pool, without and with
+    evacuations) and M3 (disaggregated, through a reset and an evacuation of
+    a decode home)."""
+    from open_gpu_kernel_modules_tpu_torch import utils
+    from open_gpu_kernel_modules_tpu_torch.ops import (flash_attention,
+                                                       paged_attention)
+    from open_gpu_kernel_modules_tpu_torch.runtime import tpusplit
+    from open_gpu_kernel_modules_tpu_torch.uvm import inject, reset, vac
+    t = SCHED
+    tiered_prompts, (phase7_tokens, _, _) = tiered
+    prompts = torch.randint(0, cfg.vocab_size, (t["streams"], t["prompt"]),
+                            generator=gen, device="cuda").cpu().numpy()
+    log(f"multichip: {ARENAS} native device arenas of "
+        f"{os.environ['TPUMEM_FAKE_HBM_MB']} MB (TPUMEM_FAKE_TPU_COUNT="
+        f"{os.environ['TPUMEM_FAKE_TPU_COUNT']}); pages of {MC_PAGE} tokens; "
+        f"M1 {TIERED} at oversub 4; M2_0/M2/M3 {t} at oversub {MC_OVERSUB}")
+    split = ("tpusplit_ships", "tpusplit_reclaims", "tpusplit_pages_shipped")
+    ctr0 = {n: utils.counter(n) for n in
+            ("vac_inject_retries", "vac_inject_aborts") + split}
+    hits0 = inject.counts(inject.Site.VAC_MIGRATE)[1]
+    wd0 = reset.stats().watchdog_evacuations
+    torch.cuda.synchronize()
+    reset_counts()
+
+    # M1's reference: phase 7's prompts and schedule at oversub 4 over the
+    # managed backing, in M1's pages; then M1 itself.
+    ref_m1_tokens, _, managed_rec = tiered_run(cfg, params, tiered_prompts, 4,
+                                               page=MC_PAGE)
+    log(f"multichip M1 reference (ManagedKVBacking, pages of {MC_PAGE}, "
+        f"oversub 4): " + json.dumps(managed_rec))
+    m1_tokens, m1 = multichip_decode(cfg, params, tiered_prompts)
+    log("multichip M1: " + json.dumps(m1))
+    check(bool((m1_tokens == ref_m1_tokens).all()),
+          f"multichip M1: tokens {m1_tokens.tolist()} differ from the "
+          f"ManagedKVBacking run's {ref_m1_tokens.tolist()}")
+    log(f"multichip M1: {int((m1_tokens == phase7_tokens).sum())} of "
+        f"{len(m1_tokens)} last tokens equal phase 7's (pages of "
+        f"{TIERED['page']})")
+    check(m1["ici"]["ici_fetch_records"] > 0 and
+          m1["ici"]["ici_flush_records"] > 0,
+          f"multichip M1: no ICI traffic both ways: {m1['ici']}")
+    check(m1["detour_hops"] == 3,
+          f"multichip M1: 0 -> 1 routes over {m1['detour_hops']} hops")
+    check(m1["tx_0_to_3_after_failure"] > 0,
+          "multichip M1: the 0 -> 3 detour carried no traffic")
+    for k in ("unstaged_activate_host_ms_mean",
+              "staged_activate_host_ms_mean", "read_pages_ms_mean"):
+        log(f"multichip M1 vs ManagedKVBacking at its shape: {k} "
+            f"{m1[k]:.3f} vs {managed_rec[k]:.3f}")
+
+    # M2_0, then M2 with its evacuations.
+    ref_tokens, ref_rep, ref_batches, _, ref_moves, _ = multichip_sched_run(
+        cfg, params, prompts)
+    check(not ref_moves, f"multichip M2_0 evacuated: {ref_moves}")
+
+    def move(src, dst):
+        def act(s):
+            check(s.evacuate_device(src, dst) is not None,
+                  f"multichip: the evacuation {src} -> {dst} aborted")
+        return act
+
+    def forced_abort(s):
+        homed = s.cache.backing.pages_homed(2)
+        inject.enable(inject.Site.VAC_MIGRATE, inject.Mode.PPM, 1000000,
+                      burst=64)
+        try:
+            rep = s.evacuate_device(2, 3)
+        finally:
+            inject.disable(inject.Site.VAC_MIGRATE)
+        check(rep is None and s.cache.backing.pages_homed(2) == homed,
+              "multichip M2: the forced abort moved pages")
+
+    def watchdog_evacuation(s):
+        move(0, 1)(s)
+        reset.watchdog_start()
+        for d in range(ARENAS - 1):
+            vac.clear(d)
+        for _ in range(4):
+            vac.note(3, vac.Event.PAGE_QUARANTINE)
+        check(vac.state(3) == vac.HealthState.EVACUATING,
+              f"multichip M2: chip 3 is {vac.state(3).name}")
+        n0 = s.stats["evacuations"]
+        deadline = time.perf_counter() + WATCHDOG_DEADLINE_S
+        while (s.stats["evacuations"] == n0 and
+               time.perf_counter() < deadline):
+            s.step()
+            time.sleep(0.02)
+        check(s.stats["evacuations"] > n0 and
+              s.cache.backing.pages_homed(3) == [],
+              "multichip M2: the watchdog's evacuation of chip 3 never came")
+
+    m2_tokens, m2_rep, m2_batches, m2_before, m2_moves, (m2_black, _) = \
+        multichip_sched_run(cfg, params, prompts, after={
+            3: move(1, 2), 5: forced_abort, 7: watchdog_evacuation})
+    log(f"multichip M2 moves (src, dst or None if aborted, pages): "
+        f"{m2_moves}")
+    check(m2_rep["evacuations"] >= 3 and m2_rep["evac_aborts"] >= 1,
+          f"multichip M2: {m2_rep['evacuations']} evacuations, "
+          f"{m2_rep['evac_aborts']} aborts")
+    check(reset.stats().watchdog_evacuations > wd0,
+          "multichip M2: the watchdog posted no evacuation")
+    compare_tokens("M2", m2_tokens, m2_batches, m2_before,
+                   (ref_tokens, ref_batches))
+
+    # M3: disaggregated, a reset after round 2, decode home 1 -> 2 after 4.
+    homes = {}
+
+    def evacuate_decode_home(s):
+        homes.update(s._disagg_home)
+        move(1, 2)(s)
+        rewritten = [sq for sq, h in homes.items()
+                     if h == 1 and s._disagg_home[sq] == 2]
+        check(len(rewritten) >= 1,
+              f"multichip M3: no decode home rewritten 1 -> 2: {homes} -> "
+              f"{s._disagg_home}")
+    m3_tokens, m3_rep, m3_batches, m3_before, m3_moves, (m3_black, ship_s) = \
+        multichip_sched_run(
+            cfg, params, prompts,
+            after={2: lambda s: reset.device_reset(),
+                   4: evacuate_decode_home},
+            disagg=tpusplit.DisaggConfig(decode_devs=(1, 2, 3)))
+    log(f"multichip M3 moves: {m3_moves}")
+    check(m3_rep["device_resets_observed"] >= 1,
+          "multichip M3: the reset was not observed")
+    check(m3_rep["disagg_ships"] + m3_rep["disagg_ship_aborts"] >=
+          t["streams"], f"multichip M3: {m3_rep['disagg_ships']} ships, "
+          f"{m3_rep['disagg_ship_aborts']} aborts")
+    check(m3_rep["disagg_pages_shipped"] > 0 and
+          m3_rep["disagg_reclaims"] > 0,
+          "multichip M3: nothing shipped or reclaimed")
+    ctr = {n: utils.counter(n) - ctr0[n] for n in ctr0}
+    check((ctr["tpusplit_ships"], ctr["tpusplit_reclaims"],
+           ctr["tpusplit_pages_shipped"]) ==
+          (m3_rep["disagg_ships"], m3_rep["disagg_reclaims"],
+           m3_rep["disagg_pages_shipped"]),
+          f"multichip M3: tpusplit counters {ctr} differ from its stats")
+    compare_tokens("M3", m3_tokens, m3_batches, m3_before,
+                   (ref_tokens, ref_batches))
+
+    check(vac.txns_active() == 0, "multichip: a vac manifest is still open")
+    hits = inject.counts(inject.Site.VAC_MIGRATE)[1] - hits0
+    check(hits == ctr["vac_inject_retries"] + ctr["vac_inject_aborts"],
+          f"multichip: vac.migrate hits {hits} != retries "
+          f"{ctr['vac_inject_retries']} + aborts {ctr['vac_inject_aborts']}")
+    launches = paged_attention.launches
+    rounds = ref_rep["rounds"] + m2_rep["rounds"] + m3_rep["rounds"]
+    m1_steps = TIERED["turns"] * (TIERED["seqs"] // TIERED["group"]) * \
+        TIERED["tokens_per_turn"]
+    # M1 and its managed reference decode the same steps.
+    expect = cfg.num_layers * (2 * m1_steps + t["tokens_per_round"] * rounds)
+    check(launches == expect, f"multichip: paged decode launched {launches} "
+          f"times, expected {expect} (2 x {m1_steps} M1 steps, {rounds} "
+          f"rounds)")
+    check(flash_attention.launches == 0 and flash_attention.rows_launches == 0,
+          "multichip launched a flash kernel")
+
+    for name, rep in (("M2_0", ref_rep), ("M2", m2_rep), ("M3", m3_rep)):
+        log(f"multichip {name}: " + json.dumps(
+            {k: v for k, v in rep.items() if k != "slo"}))
+        log(f"multichip {name}: agg_toks_per_s {rep['agg_toks_per_s']}, "
+            f"p50_token_ms {rep['p50_token_ms']}, p99_token_ms "
+            f"{rep['p99_token_ms']}, rounds {rep['rounds']}, wall_s "
+            f"{rep['wall_s']}, ICI bytes {rep['ici']['ici_bytes']} "
+            f"(fetched {rep['ici']['ici_fetch_records']}, flushed "
+            f"{rep['ici']['ici_flush_records']} records)")
+    legs = np.array(ship_s) * 1e3
+    log(f"multichip: evacuation blackouts ms M2 "
+        f"{[round(b * 1e3, 3) for b in m2_black]}, M3 "
+        f"{[round(b * 1e3, 3) for b in m3_black]}; M3 ship legs "
+        f"{len(legs)}, p50 {np.percentile(legs, 50):.3f} ms, p99 "
+        f"{np.percentile(legs, 99):.3f} ms; vac.migrate hits {hits}; "
+        f"B1 launches {launches}; {smi}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     # Read by the native engine when it loads (it has not yet).
     os.environ["TPUMEM_FAKE_HBM_MB"] = str(ARENA_MB)
+    os.environ["TPUMEM_FAKE_TPU_COUNT"] = str(ARENAS)
     from open_gpu_kernel_modules_tpu_torch.models import llama
 
     smi = phase_build()
@@ -854,8 +1271,10 @@ def main() -> int:
     # and the Scheduler's rounds, each path's count read from zero.
     b1_launches = phase_serving(cfg, params, gen)
     b2_launches = phase_flash_forward(cfg, params, gen)
-    b1_launches += phase_tiered(cfg, params, gen)
+    tiered_launches, *tiered = phase_tiered(cfg, params, gen)
+    b1_launches += tiered_launches
     b1_launches += phase_sched(cfg, params, gen)
+    b1_launches += phase_multichip(cfg, params, gen, tiered, smi)
 
     # Which body each kernel runs per dtype at the main shapes: all three
     # take the tensor cores in bf16 and keep FMAs in fp32.

@@ -9,7 +9,11 @@ There is no fallback on CUDA: the chosen kernel runs or the call raises.
 
 The TPU version's block sizes (``blk_q``/``blk_k``) and ``interpret`` flag
 are Pallas tiling and emulation knobs with no counterpart here: the kernels
-tile by 64 and mask the ragged edge themselves, so nothing is padded.
+tile by 64 and mask the ragged edge themselves, so no sequence is padded.
+The kernels take head_dim 64 and 128; a smaller head_dim that is a multiple
+of 8 is zero-padded up to the next of them (16 and 32 to 64, 96 to 128).
+Zero columns add nothing to QK^T and give zero output columns, which are cut
+off again, and the softmax scale is that of the true head_dim.
 """
 
 from __future__ import annotations
@@ -28,7 +32,7 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # by their dtype argument): bf16 the wgmma/TMA core of csrc/attn_sm90.cuh,
 # fp32 the CUDA-core FMA body, since TF32 cannot meet fp32's tolerance.
 BODY = {torch.bfloat16: "tensor_cores", torch.float32: "fma"}
-_HEAD_DIMS = (64, 128)
+_HEAD_DIMS = (64, 128)           # the widths the kernels are built for
 
 
 def _scale(d: int) -> float:
@@ -100,6 +104,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        "grid" if impl == "auto" else impl)
 
 
+def _padded_dim(d: int) -> int:
+    """The kernel width a head_dim of ``d`` runs at (zero-padded up to it);
+    raises for a head_dim the kernels cannot take."""
+    if d % 8 == 0:
+        for w in _HEAD_DIMS:
+            if 0 < d <= w:
+                return w
+    raise ValueError(f"head_dim {d} not supported: the kernels take 64 and "
+                     f"128, and a multiple of 8 below 128 padded up to one "
+                     f"of them")
+
+
 def _strides(x: torch.Tensor, layout: str):
     """(batch, head, seq) element strides of a contiguous tensor."""
     sb, s1, s2, _ = x.stride()
@@ -130,11 +146,13 @@ def _flash_cuda(q, k, v, causal, prescale_q, layout, impl="grid"):
     if (kb, kh, kd) != (b, h, d):
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} differ "
                          "in batch, heads or head_dim")
-    if d not in _HEAD_DIMS:
-        raise ValueError(f"head_dim {d} not in {_HEAD_DIMS}")
-    out = torch.empty_like(q)
+    width = _padded_dim(d)
     if sq == 0 or b * h == 0:
-        return out
+        return torch.empty_like(q)
+    if width != d:
+        q, k, v = (torch.nn.functional.pad(x, (0, width - d))
+                   for x in (q, k, v))
+    out = torch.empty_like(q)
     source, entry = _KERNELS[impl]
     fn = getattr(_build.load(source), entry)
     fn.restype = ctypes.c_int
@@ -144,9 +162,9 @@ def _flash_cuda(q, k, v, causal, prescale_q, layout, impl="grid"):
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 b, h, sq, sk, d, *_strides(q, layout), *_strides(k, layout),
-                 int(causal), int(prescale_q), _scale(d), _DTYPES[q.dtype],
-                 stream)
+                 b, h, sq, sk, width, *_strides(q, layout),
+                 *_strides(k, layout), int(causal), int(prescale_q),
+                 _scale(d), _DTYPES[q.dtype], stream)
     if err != 0:
         # attn_sm90.cuh adds two codes past CUDA's own: 2000, libcuda has no
         # cuTensorMapEncodeTiled; 3000 + r, it refused a tensor map (r).
@@ -155,7 +173,7 @@ def _flash_cuda(q, k, v, causal, prescale_q, layout, impl="grid"):
         flash_attention.rows_launches += 1
     else:
         flash_attention.launches += 1
-    return out
+    return out if width == d else out[..., :d].contiguous()
 
 
 def rows_segment_tokens(sq: int, sk: int, d: int, dtype: torch.dtype,

@@ -45,12 +45,22 @@ rides the memring ops its pages travel on; the scheduler charges the
 queued, preempted and reset blame buckets and feeds the per-tenant TTFT and
 inter-token-latency histograms.
 
+Over a multichip cache (``models.multichip``: pages homed on several device
+arenas, moved over ICI) two more branches run: chip EVACUATION
+(``evacuate_device``, and the poll at the top of every round that serves
+the reset watchdog's EVACUATE requests) drains the streams owning pages of a
+chip and re-homes those pages with a vac transaction; and prefill/decode
+DISAGGREGATION (``disagg=tpusplit.DisaggConfig``) ships each admitted
+stream's KV to a decode chip after its prefill and reclaims a slot's records
+before the next stream prefills into it.  A managed backing
+(``ManagedKVBacking``, the default) restores preempted streams through a
+fused evict/prefetch submission on a tier ring and probes poisoned pages; a
+multichip one restores through the plain activation, as in JAX.
+
 The streams are SIMULATED (prompts in, greedy tokens out).  The decode runs
-on ``device`` (the CUDA card unless the caller passes ``device="cpu"``);
-prompts and tokens stay numpy on the host.  The JAX file's multichip
-branches (prefill/decode disaggregation, chip evacuation) need a multichip
-backing, which the port does not have yet: ``disagg`` raises as it does in
-JAX with a single-chip backing.
+on ``device`` (the CUDA card unless the caller passes ``device="cpu"``, or
+the device of the ``cache`` the caller passes); prompts and tokens stay
+numpy on the host.
 """
 
 from __future__ import annotations
@@ -66,7 +76,7 @@ import torch
 
 from .. import utils as _utils
 from ..device import DeviceLike, resolve
-from ..models import llama, serving
+from ..models import llama, multichip, serving
 from ..uvm import hot as _hot
 from ..uvm import inject as _inject
 from ..uvm import journal as _journal
@@ -74,7 +84,9 @@ from ..uvm import managed as _managed
 from ..uvm import memring as _memring
 from ..uvm import reset as _reset
 from ..uvm import shield as _shield
+from ..uvm import vac as _vac
 from . import native
+from . import tpusplit as _tpusplit
 
 # --------------------------------------------------------------- plumbing
 
@@ -88,33 +100,12 @@ def _lib() -> ctypes.CDLL:
     lib = native.load()
     lib.tpuCounterAdd.argtypes = [ctypes.c_char_p, ctypes.c_uint64]
     lib.tpuCounterAdd.restype = None
-    lib.tpurmTraceBegin.argtypes = []
-    lib.tpurmTraceBegin.restype = ctypes.c_uint64
-    lib.tpurmTraceEnd.argtypes = [ctypes.c_uint32, ctypes.c_uint64,
-                                  ctypes.c_uint64, ctypes.c_uint64]
-    lib.tpurmTraceEnd.restype = None
     _bound = lib
     return lib
 
 
 def _counter_add(name: str, delta: int = 1) -> None:
     _lib().tpuCounterAdd(name.encode(), delta)
-
-
-class _span:
-    """Native trace span for a sched.* site (no-op while tracing is
-    disarmed: tpurmTraceBegin's single-relaxed-load fast path)."""
-
-    def __init__(self, site: str, obj: int = 0):
-        self._site = _utils.trace_site(site)
-        self._obj = obj
-
-    def __enter__(self) -> "_span":
-        self._t0 = _lib().tpurmTraceBegin()
-        return self
-
-    def __exit__(self, *exc) -> None:
-        _lib().tpurmTraceEnd(self._site, self._t0, self._obj, 0)
 
 
 #: Round budget of :meth:`Scheduler.run`.
@@ -192,9 +183,14 @@ class Scheduler:
     sequence-slot dimension); the device slot pool holds
     ``max_seqs * pages_per_seq / oversub`` pages, so at oversub > 1 the
     admitted set can outgrow device residency — that pressure drives
-    preemption, and the backing (UVM managed memory, preferred CXL) is
-    where preempted sequences park.  ``device`` holds the slot pool and
-    runs the decode (``device.resolve``: the CUDA card by default).
+    preemption, and the backing (UVM managed memory, preferred CXL, or the
+    multichip ICI pool) is where preempted sequences park.  ``device`` holds
+    the slot pool and runs the decode (``device.resolve``: the CUDA card by
+    default).  ``cache`` serves over a cache the caller made (a multichip
+    one, ``models.multichip.make_multichip_cache``) instead of a new
+    managed one; the shape arguments are then the cache's, and so is the
+    device.  ``disagg`` (a ``tpusplit.DisaggConfig``) needs a multichip
+    cache.
     """
 
     def __init__(self, cfg: llama.LlamaConfig, params,
@@ -202,13 +198,16 @@ class Scheduler:
                  page_size: int = 64, oversub: int = 1,
                  tokens_per_round: int = 8,
                  admit_retries: int = 3,
-                 disagg=None, device: DeviceLike = None):
-        device = resolve(device)
-        if disagg is not None:
-            # Disaggregation ships KV between chips of a multichip backing,
-            # which the port does not have (the JAX message, unchanged).
-            raise ValueError("disagg needs a multichip backing "
-                             "(models.multichip.IciPoolBacking)")
+                 cache: Optional[serving.TieredKVCache] = None,
+                 disagg: Optional[_tpusplit.DisaggConfig] = None,
+                 device: DeviceLike = None):
+        if cache is None:
+            cache = serving.TieredKVCache(
+                cfg, batch=max_seqs, max_len=max_len, page_size=page_size,
+                oversub=oversub, device=resolve(device))
+        elif device is not None and resolve(device) != cache.device:
+            raise ValueError(f"device {device} is not the cache's device "
+                             f"({cache.device})")
         self.cfg = cfg
         self.params = params
         self.tokens_per_round = tokens_per_round
@@ -216,9 +215,14 @@ class Scheduler:
         # Device-generation watch: a bump between rounds means a full
         # device reset ran under the scheduler — see _check_generation.
         self._gen = _reset.generation()
-        self.cache = serving.TieredKVCache(
-            cfg, batch=max_seqs, max_len=max_len, page_size=page_size,
-            oversub=oversub, device=device)
+        self.cache = cache
+        # The backing's kind, decided once: a managed backing gets the tier
+        # ring, the fused evict/prefetch restore, the poison probe and the
+        # flow_of_page hook; a multichip one gets chip evacuation, tenant
+        # charges per arena and disaggregation.
+        backing = cache.backing
+        self._managed = isinstance(backing, serving.ManagedKVBacking)
+        self._multichip = isinstance(backing, multichip.IciPoolBacking)
         self.max_seqs = self.cache.batch
         self.max_len = self.cache.pages_per_seq * self.cache.page_size
 
@@ -245,10 +249,35 @@ class Scheduler:
                       "device_resets_observed": 0,
                       "evacuations": 0, "evac_aborts": 0,
                       "evac_pages_moved": 0}
-        # tpuflow: per-page flow resolution for the backing's batched fault
-        # pass (read_pages stamps each page's prefetch SQEs with its owning
-        # request's flow).
-        self.cache.backing.flow_of_page = self._flow_of_page
+        # Per-evacuation blackout windows (park -> manifest commit), in s.
+        self.evac_blackouts_s: List[float] = []
+        # tpuflow: per-page flow resolution for the managed backing's
+        # batched fault pass (read_pages stamps each page's prefetch SQEs
+        # with its owning request's flow).
+        if self._managed:
+            backing.flow_of_page = self._flow_of_page
+        # tpusplit: each admitted stream prefills against
+        # disagg.prefill_dev, then its slot's records SHIP (a vac
+        # transaction riding the request's flow) to its decode home.
+        self._disagg = disagg
+        if disagg is not None:
+            if not self._multichip:
+                raise ValueError(
+                    "disagg needs a multichip backing "
+                    "(models.multichip.IciPoolBacking)")
+            bad = [d for d in (disagg.prefill_dev,) +
+                   tuple(disagg.decode_devs) if d >= backing.n_devices]
+            if bad:
+                raise ValueError(f"disagg devices {bad} out of range "
+                                 f"(pool has {backing.n_devices})")
+            for k in ("disagg_ships", "disagg_ship_aborts",
+                      "disagg_reclaims", "disagg_pages_shipped"):
+                self.stats[k] = 0
+        # Per-ship-leg wall times (vac MigrationReport.ship_s), and the
+        # slot -> decode home map (deterministic; an EVACUATION of a decode
+        # chip rewrites the entries it moved).
+        self.disagg_ship_s: List[float] = []
+        self._disagg_home: Dict[int, int] = {}
 
     # ------------------------------------------------------------ tenants
 
@@ -373,14 +402,18 @@ class Scheduler:
 
     def _seq_coldness(self, req: Request) -> float:
         """Coldness for the victim choice: the cache-level activation heat
-        of the sequence's covered pages PLUS the native tracker's decayed
-        score over its backing span.  Lower = colder."""
+        of the sequence's covered pages PLUS, on a managed backing, the
+        native tracker's decayed score over its backing span.  Lower =
+        colder."""
+        heat = self.cache.seq_heat(req.seq)
+        if not self._managed:
+            return heat
         backing = self.cache.backing
         off = req.seq * self.cache.pages_per_seq * backing.rec_bytes
         span = self._seq_pages(req) * backing.rec_bytes
         # /1024: the native score is <<10 fixed-point per page touch.
-        return self.cache.seq_heat(req.seq) + _hot.span_score(
-            backing.k_buf.address + off, span) / 1024.0
+        return heat + _hot.span_score(backing.k_buf.address + off,
+                                      span) / 1024.0
 
     def _pick_victim(self) -> Optional[Request]:
         """SLO ordering, mirroring the native arena walk: over-quota
@@ -416,7 +449,9 @@ class Scheduler:
     def _stage_evicts(self, req: Request) -> None:
         """Record the preempted victim's backing spans for a fused demote:
         clearing their device-side residency frees arena pages exactly
-        where the next restore uploads."""
+        where the next restore uploads (managed backing only)."""
+        if not self._managed:
+            return
         backing = self.cache.backing
         first = req.seq * self.cache.pages_per_seq
         npages = self._pages_for(int(self.cache.seq_lens[req.seq]))
@@ -454,7 +489,7 @@ class Scheduler:
         the park to the flow's reset bucket, not preempted."""
         _utils.flow_set(req.flow)
         try:
-            with _span("sched.preempt", obj=req.rid):
+            with _utils.span("sched.preempt", obj=req.rid):
                 # _cur_tok holds the stream's truth (updated every round);
                 # only the KV pages need persisting.
                 self.cache.flush_group([req.seq])
@@ -503,9 +538,11 @@ class Scheduler:
         PREFETCHes, each prefetch carrying an ordered dep on the last evict
         — frees the victims' device residency right where the restore
         uploads.  Runs on the dedicated tier ring; falls back to the
-        backing ring, then to plain activation faulting."""
+        backing ring, then to plain activation faulting, which is how a
+        multichip backing restores (the activation reads its pages)."""
         backing = self.cache.backing
-        ring = self._tier_ring_get() or backing.ring
+        ring = ((self._tier_ring_get() or backing.ring) if self._managed
+                else None)
         # The park window stays OPEN through the restore: it closes at the
         # stream's next token emission (step) or cancel.
         try:
@@ -571,6 +608,56 @@ class Scheduler:
         ring.submit_and_wait(None)
         self._check_prefetch_cqes(ring.completions(max_cqes=8192))
 
+    # ------------------------------------------------ tpusplit disagg
+
+    def _slot_pages(self, seq: int) -> List[int]:
+        m = self.cache.pages_per_seq
+        return list(range(seq * m, (seq + 1) * m))
+
+    def _disagg_reclaim(self, req: Request) -> None:
+        """Bring the slot's records back to the prefill chip before the new
+        stream prefills into it.  Best-effort: on abort the prefill's KV
+        writes still reach a remote home over ICI — the reclaim buys
+        locality, never correctness."""
+        if self._disagg is None:
+            return
+        backing = self.cache.backing
+        d = self._disagg
+        pages = [p for p in self._slot_pages(req.seq)
+                 if int(backing.home[p]) != d.prefill_dev]
+        if not pages:
+            return
+        try:
+            _tpusplit.reclaim_kv(backing, pages, d.prefill_dev,
+                                 flow=req.flow, window=d.window)
+            self.stats["disagg_reclaims"] += 1
+        except (_vac.VacAbort, native.RmError, RuntimeError):
+            pass
+
+    def _disagg_ship(self, req: Request) -> None:
+        """Ship the freshly prefilled slot to the stream's decode home
+        (flushed first: the ship moves the KV truth).  The vac transaction
+        rides the REQUEST's flow.  On abort the stream decodes CO-LOCATED
+        from wherever its pages are — token-exact, only the placement
+        degrades."""
+        if self._disagg is None:
+            return
+        d = self._disagg
+        home = self._disagg_home.get(req.seq, d.home_of(req.seq))
+        self.cache.flush_group([req.seq])
+        try:
+            reps = _tpusplit.ship_kv(self.cache.backing,
+                                     self._slot_pages(req.seq), home,
+                                     flow=req.flow, window=d.window)
+        except (_vac.VacAbort, native.RmError, RuntimeError):
+            self.stats["disagg_ship_aborts"] += 1
+            _counter_add("tpusplit_ship_aborts")
+            return
+        self._disagg_home[req.seq] = home
+        self.stats["disagg_ships"] += 1
+        self.stats["disagg_pages_shipped"] += sum(r.pages for r in reps)
+        self.disagg_ship_s.extend(_tpusplit.ship_latencies_s(reps))
+
     # --------------------------------------------------------- admission
 
     def _admit_gate(self) -> bool:
@@ -615,9 +702,17 @@ class Scheduler:
             req._queued_charged = True
             queued = now_ns - req._submit_ns if req._submit_ns else 0
             _utils.flow_account(req.flow, "queued", queued)
+        if self._multichip:
+            # The slot's pages now charge to this tenant's per-device
+            # columns (tpuvac rebinds them on migration).
+            for page in self._slot_pages(seq):
+                self.cache.backing.set_page_tenant(page, req.tenant)
+        # tpusplit: records the slot's PREVIOUS stream parked on a decode
+        # chip come home before prefill writes KV into them.
+        self._disagg_reclaim(req)
         try:
             _utils.flow_set(req.flow)
-            with _span("sched.admit", obj=req.rid):
+            with _utils.span("sched.admit", obj=req.rid):
                 serving.prefill_group(
                     self.cfg, self.params, self.cache, [seq],
                     torch.as_tensor(req.prompt[None, :],
@@ -634,6 +729,9 @@ class Scheduler:
             return False
         finally:
             _utils.flow_set(0)
+        # tpusplit: ship the prefilled slot to its decode home (or decode
+        # co-located on abort).
+        self._disagg_ship(req)
         self._cur_tok[seq] = self.cache.last_token[seq]
         self._running[seq] = req
         req.state = RequestState.RUNNING
@@ -642,7 +740,7 @@ class Scheduler:
         return True
 
     def _try_admissions(self) -> None:
-        with _span("sched.admit"):
+        with _utils.span("sched.admit"):
             if (self._preempted or self._queue) and not self._admit_gate():
                 return
             # Restores outrank fresh admissions (they were admitted first);
@@ -701,9 +799,9 @@ class Scheduler:
     # ------------------------------------------------------- poison
 
     def _seq_poisoned(self, req: Request) -> bool:
-        """Containment probe: does this stream's backing span hold a
-        poisoned page?"""
-        if req.seq is None:
+        """Containment probe: does this stream's managed backing span hold
+        a poisoned page?"""
+        if req.seq is None or not self._managed:
             return False
         backing = self.cache.backing
         off = req.seq * self.cache.pages_per_seq * backing.rec_bytes
@@ -766,12 +864,107 @@ class Scheduler:
             if req is not None:
                 self._preempt(req, reset=True)
 
+    # ------------------------------------------------------- evacuation
+
+    def evacuate_device(self, src: int, dst: Optional[int] = None,
+                        tenant: Optional[int] = None
+                        ) -> Optional[_vac.MigrationReport]:
+        """Drain-and-migrate: move the KV records homed on chip ``src`` to
+        ``dst`` (``None``: the engine's pick) while co-tenants keep
+        decoding.
+
+        DRAIN: every RUNNING sequence owning an affected page is preempted
+        (dirty slots flush, victim-ring entries materialize: the backing
+        becomes authoritative for the moving pages).  MIGRATE:
+        vac.migrate_pages, whose home maps flip only after the manifest
+        commits.  The parked sequences restore over the next rounds from
+        the new home, token-exact.
+
+        On abort the source was never touched: this returns None and the
+        parked sequences resume ON THE SOURCE.  ``tenant`` restricts the
+        move to one tenant's sequences.  Returns the vac.MigrationReport, or
+        None when the move aborted or nothing was homed on ``src``."""
+        if not self._multichip:
+            raise ValueError("evacuation needs a multichip backing "
+                             "(models.multichip.IciPoolBacking)")
+        backing = self.cache.backing
+        if dst is None:
+            dst = _vac.pick_target(src)
+            if dst is None:
+                raise RuntimeError(
+                    f"no viable evacuation target for device {src} "
+                    f"(no healthy peer with HBM headroom)")
+        cand = None
+        if tenant is not None:
+            seqs = [r.seq for r in list(self._running.values()) +
+                    self._preempted
+                    if r.tenant == tenant and r.seq is not None]
+            cand = [p for s in seqs for p in self._slot_pages(s)]
+        pages = backing.pages_homed(src, cand)
+        if not pages:
+            return None
+
+        t0 = time.perf_counter()
+        m = self.cache.pages_per_seq
+        affected = {p // m for p in pages}
+        for seq, req in list(self._running.items()):
+            if seq in affected:
+                self._preempt(req)
+        try:
+            rep = _vac.migrate_pages(backing, src, dst, pages)
+        except (_vac.VacAbort, native.RmError, RuntimeError):
+            # VacAbort is the protocol's own abort; RmError/RuntimeError
+            # cover target-side allocation exhaustion and a PEER_COPY error
+            # CQE.  The source mapping was never touched, so the parked
+            # sequences restore from it as after a plain preemption.
+            self.stats["evac_aborts"] += 1
+            _counter_add("tpusched_evac_aborts")
+            return None
+        self.evac_blackouts_s.append(time.perf_counter() - t0)
+        self.stats["evacuations"] += 1
+        self.stats["evac_pages_moved"] += rep.pages
+        _counter_add("tpusched_evacuations")
+        # tpusplit: an evacuated decode chip's streams now live on the
+        # target; later ships and reclaims follow the pages.
+        if self._disagg is not None:
+            for s in affected:
+                if self._disagg_home.get(s) == src:
+                    self._disagg_home[s] = dst
+        return rep
+
+    def _check_evacuation(self) -> None:
+        """Poll the native evacuation rendezvous: the watchdog's EVACUATE
+        rung (or an operator) posted a request for some chip — serve it
+        inside the grace window and ack, or ack failure so the ladder can
+        escalate.  Other backings ignore requests (they hold no per-chip
+        pages; the request expires to the ladder)."""
+        if not self._multichip:
+            return
+        backing = self.cache.backing
+        for dev in range(backing.n_devices):
+            pending = _vac.evac_pending(dev)
+            if pending is None:
+                continue
+            target, req_id = pending
+            try:
+                rep = self.evacuate_device(
+                    dev, None if target == _vac.AUTO_TARGET else target)
+                # None with nothing homed there: nothing to move.
+                ok = rep is not None or not backing.pages_homed(dev)
+            except (native.RmError, RuntimeError, ValueError):
+                ok = False
+            try:
+                _vac.evac_ack(dev, req_id, ok)
+            except native.RmError:
+                pass             # request expired under us: ladder owns it
+
     def step(self) -> Dict[str, int]:
         """One scheduling round: admit/restore, fit-check (preempting
         SLO-ordered victims if decode growth outgrew the pool), ONE batched
         decode, retire.  Returns live counts."""
-        with _span("sched.round", obj=self.stats["rounds"]):
+        with _utils.span("sched.round", obj=self.stats["rounds"]):
             self._check_generation()
+            self._check_evacuation()
             self._try_admissions()
             # Evicts staged by preempts fuse into the next restore's
             # submission; once no restore can consume them, publish them

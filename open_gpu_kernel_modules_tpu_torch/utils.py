@@ -4,12 +4,14 @@ The port's copy of the part of the JAX package's ``utils/__init__.py`` that
 the scheduler and its tests use, with the same names:
 
 - tputrace (native/src/trace.c): arm, disarm and clear the span rings,
-  read a site's latency histogram count, export the Chrome trace-event
-  JSON, and the Prometheus exposition (``metrics_text``);
+  emit a span of a named site (``span``), read a site's latency histogram
+  count, export the Chrome trace-event JSON, and the Prometheus exposition
+  (``metrics_text``);
 - tpuflow (native/src/flow.c): mint flow ids (tenant << 48 | request <<
   16), open and close per-request blame ledgers, charge blame buckets, set
   the calling thread's flow context, feed and read the per-tenant TTFT and
-  inter-token-latency histograms, and the top-K slow-flow report.
+  inter-token-latency histograms, and the top-K slow-flow report;
+- ``counter``: one monotonic named engine counter (vac, tpusplit, ...).
 
 All of it is process-wide state in the native library.
 """
@@ -69,6 +71,10 @@ def _lib() -> ctypes.CDLL:
     lib.tpurmTraceHistCountNs.restype = u64
     lib.tpurmTraceSiteName.argtypes = [u32]
     lib.tpurmTraceSiteName.restype = cp
+    lib.tpurmTraceBegin.argtypes = []
+    lib.tpurmTraceBegin.restype = u64
+    lib.tpurmTraceEnd.argtypes = [u32, u64, u64, u64]
+    lib.tpurmTraceEnd.restype = None
     lib.tpurmProcfsRead.argtypes = [cp, cp, sz]
     lib.tpurmProcfsRead.restype = sz
     lib.tpurmFlowMint.argtypes = [u32, u32]
@@ -95,8 +101,15 @@ def _lib() -> ctypes.CDLL:
     lib.tpurmSloBlameNs.restype = u64
     lib.tpurmTraceFlowSet.argtypes = [u64]
     lib.tpurmTraceFlowSet.restype = None
+    lib.tpurmCounterGet.argtypes = [cp]
+    lib.tpurmCounterGet.restype = u64
     _bound = lib
     return lib
+
+
+def counter(name: str) -> int:
+    """Monotonic named engine counter."""
+    return _lib().tpurmCounterGet(name.encode())
 
 
 # ------------------------------------------------------------------ tracing
@@ -113,6 +126,25 @@ def trace_site(name: str) -> int:
             _TRACE_SITES[s.decode()] = i
             i += 1
     return _TRACE_SITES[name]
+
+
+class span:
+    """A native trace span of a named site (``sched.round``,
+    ``vac.migrate``, ...), with an object id and a byte count; a no-op
+    while tracing is disarmed (tpurmTraceBegin's relaxed-load fast
+    path)."""
+
+    def __init__(self, site: str, obj: int = 0, bytes_: int = 0):
+        self._site = trace_site(site)
+        self._obj = obj
+        self.bytes = bytes_
+
+    def __enter__(self) -> "span":
+        self._t0 = _lib().tpurmTraceBegin()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        _lib().tpurmTraceEnd(self._site, self._t0, self._obj, self.bytes)
 
 
 def trace_start() -> None:

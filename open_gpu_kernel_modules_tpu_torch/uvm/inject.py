@@ -1,10 +1,11 @@
 """Fault injection sites of the native engine (native/src/inject.c).
 
 The port's copy of the part of the JAX package's ``uvm/inject.py`` that the
-scheduler and its tests use: arm a named site (one-shot, every Nth, or
-parts-per-million, each hit failing ``burst`` evaluations in a row),
-evaluate one the way an engine check does (the scheduler's ``sched.admit``
-gate), disarm, and read back (evaluations, hits).  Site state is
+scheduler, the vac migration engine and their tests use: seed the sites'
+PRNG, arm a named site (one-shot, every Nth, or parts-per-million, each hit
+failing ``burst`` evaluations in a row), evaluate one the way an engine check
+does (the scheduler's ``sched.admit`` gate, vac's ``vac.migrate``), disarm,
+and read back (evaluations, hits).  Site state is
 process-wide in the native library.
 """
 
@@ -64,6 +65,8 @@ def _lib() -> ctypes.CDLL:
     lib.tpurmInjectCounts.restype = None
     lib.tpurmInjectShouldFail.argtypes = [u32]
     lib.tpurmInjectShouldFail.restype = ctypes.c_bool
+    lib.tpurmInjectSetSeed.argtypes = [u64]
+    lib.tpurmInjectSetSeed.restype = None
     _bound = lib
     return lib
 
@@ -72,6 +75,11 @@ def should_fail(site: Site) -> bool:
     """Evaluate a site the way an engine check does (one native call; the
     disarmed fast path stays intact)."""
     return bool(_lib().tpurmInjectShouldFail(int(site)))
+
+
+def set_seed(seed: int) -> None:
+    """Reseed every site's PRNG (same seed, same hit sequence)."""
+    _lib().tpurmInjectSetSeed(seed)
 
 
 def enable(site: Site, mode: Mode, arg: int = 0, burst: int = 1) -> None:

@@ -1,8 +1,9 @@
 """tpumemring — io_uring-style async memory-op rings (native/src/memring.c).
 
 The port's own copy of the part of the JAX package's ``uvm/memring.py``
-that the tiered KV backing and the scheduler use: a ``MemRing`` bound to a
-VA space that stages device-access PREFETCH and tier-demote EVICT ops,
+that the tiered KV backing, the scheduler and the vac migration engine use: a
+``MemRing`` bound to a VA space (or to none, for ICI peer copies only) that
+stages device-access PREFETCH, tier-demote EVICT and ICI PEER_COPY ops,
 publishes them with one doorbell, waits for the batch and reaps per-op
 completions.  The native worker pool coalesces contiguous spans into
 block-granular engine calls.  Errors come back per op;
@@ -151,7 +152,8 @@ def _check(status: int, what: str) -> None:
 
 
 class MemRing:
-    """An async memory-op ring bound to a UVM VA space.
+    """An async memory-op ring bound to a UVM VA space, or to none
+    (``vs=None``: a ring that ships only ICI peer copies).
 
     Destroy the ring before closing the space.  The prep methods stage
     SQEs; nothing reaches the workers until :meth:`submit`.  Unlinked ops
@@ -162,7 +164,8 @@ class MemRing:
         self._lib = _lib()
         handle = ctypes.c_void_p()
         # workers=0: the engine's default worker pool.
-        _check(self._lib.tpurmMemringCreate(vs._handle, entries, 0,
+        vs_handle = vs._handle if vs is not None else None
+        _check(self._lib.tpurmMemringCreate(vs_handle, entries, 0,
                                             ctypes.byref(handle)),
                "tpurmMemringCreate")
         self._handle = handle
@@ -210,6 +213,19 @@ class MemRing:
         s = _Sqe(opcode=Op.EVICT, dstTier=int(tier), addr=addr, len=length,
                  flowId=flow)
         return self._prep(s)
+
+    def peer_copy(self, dev: int, peer: int, local_off: int,
+                  peer_off: int, length: int, read: bool = False,
+                  deps=None, flow: int = 0) -> int:
+        """Stage an ICI peer copy between HBM arena offsets (write:
+        ``dev``'s ``local_off`` -> ``peer``'s ``peer_off``; ``read=True``
+        the other way).  The vac migration engine puts an ordered dep on
+        the previous shipping window in ``deps``, so page records land in
+        manifest order."""
+        s = _Sqe(opcode=Op.PEER_COPY, devInst=dev, peerInst=peer,
+                 addr=local_off, peerOff=peer_off, len=length,
+                 arg0=1 if read else 0, flowId=flow)
+        return self._prep(s, deps)
 
     def submit(self) -> int:
         """Publish every staged SQE (one doorbell); returns the count."""

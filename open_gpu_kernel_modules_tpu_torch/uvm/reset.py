@@ -3,7 +3,9 @@
 The port's copy of the part of the JAX package's ``uvm/reset.py`` that the
 tiered KV backing and the scheduler use: ``generation()``, which bumps once
 per completed full-device reset; ``device_reset()``, which forces one
-(quiesce, generation bump, restore); and ``stats()``.
+(quiesce, generation bump, restore); ``watchdog_start()``, which starts the
+hung-op watchdog whose health tick posts chip evacuation requests; and
+``stats()``.
 ``ManagedKVBacking.read_pages`` retries a batch the generation fence
 rejected only while the generation keeps advancing; the scheduler polls it
 every round and parks and restores its running sequences when it moved.
@@ -66,6 +68,8 @@ def _lib() -> ctypes.CDLL:
         lib.tpurmDeviceReset.restype = ctypes.c_uint32
         lib.tpurmResetStats.argtypes = [ctypes.POINTER(_Stats)]
         lib.tpurmResetStats.restype = None
+        lib.tpurmResetWatchdogStart.argtypes = []
+        lib.tpurmResetWatchdogStart.restype = None
         _bound = lib
     return _bound
 
@@ -82,6 +86,11 @@ def device_reset() -> None:
     st = _lib().tpurmDeviceReset()
     if st != 0:
         raise native.RmError(st, "tpurmDeviceReset")
+
+
+def watchdog_start() -> None:
+    """Start the hung-op watchdog (idempotent)."""
+    _lib().tpurmResetWatchdogStart()
 
 
 def stats() -> ResetStats:

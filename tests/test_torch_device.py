@@ -68,6 +68,10 @@ def test_port_imports_no_jax():
             "import open_gpu_kernel_modules_tpu_torch.uvm.shield\n"
             "import open_gpu_kernel_modules_tpu_torch.utils\n"
             "import open_gpu_kernel_modules_tpu_torch.runtime.sched\n"
+            "import open_gpu_kernel_modules_tpu_torch.models.multichip\n"
+            "import open_gpu_kernel_modules_tpu_torch.runtime.ici\n"
+            "import open_gpu_kernel_modules_tpu_torch.runtime.tpusplit\n"
+            "import open_gpu_kernel_modules_tpu_torch.uvm.vac\n"
             "bad = [m for m in sys.modules if m in ('jax', 'ml_dtypes') or "
             "m.startswith(('jax.', 'ml_dtypes.', "
             "'open_gpu_kernel_modules_tpu.')) or "

@@ -12,6 +12,7 @@ import torch
 
 from open_gpu_kernel_modules_tpu.ops import flash_attention as jflash
 from open_gpu_kernel_modules_tpu_torch.ops import flash_attention as tflash
+from open_gpu_kernel_modules_tpu_torch.ops.flash_attention import _padded_dim
 
 from torch_port_util import normal, to_np
 
@@ -64,3 +65,18 @@ def test_unknown_impl_rejected():
     for impl in ("grid", "rows"):
         torch.testing.assert_close(tflash(q, k, v, impl=impl),
                                    tflash(q, k, v, impl="auto"))
+
+
+@pytest.mark.parametrize("d,width", [(8, 64), (16, 64), (32, 64), (64, 64),
+                                     (72, 128), (96, 128), (128, 128),
+                                     (12, None), (100, None), (136, None),
+                                     (256, None)])
+def test_cuda_head_dim_padding(d, width):
+    """The kernels run at head_dim 64 or 128: a multiple of 8 below 128 is
+    zero-padded up to the next of them; any other head_dim raises, naming
+    the widths taken."""
+    if width is None:
+        with pytest.raises(ValueError, match="the kernels take 64 and 128"):
+            _padded_dim(d)
+    else:
+        assert _padded_dim(d) == width

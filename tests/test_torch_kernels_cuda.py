@@ -190,6 +190,53 @@ def test_flash_tensor_cores_match_reference(gen, d, s, layout, causal,
 
 
 @pytest.mark.parametrize("impl", ["grid", "rows"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("layout", ["bshd", "bhsd"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [16, 32, 96])
+def test_flash_padded_head_dims_match_reference(gen, d, dtype, layout,
+                                                causal, impl):
+    """head_dims the kernels take by zero-padding to 64 (16, 32) or 128
+    (96): the output keeps the true head_dim and the softmax its scale,
+    one launch a call."""
+    s = 130
+    shape = (2, 3, s, d) if layout == "bhsd" else (2, s, 3, d)
+    q, k, v = (_randn(gen, shape, dtype) for _ in range(3))
+    kw = dict(causal=causal, layout=layout)
+    counts = (flash_attention.launches, flash_attention.rows_launches)
+    out = flash_attention(q, k, v, impl=impl, **kw)
+    ref = flash_attention_reference(q, k, v, **kw)
+    torch.cuda.synchronize()
+    rose = (flash_attention.launches - counts[0],
+            flash_attention.rows_launches - counts[1])
+    assert rose == ((0, 1) if impl == "rows" else (1, 0))
+    assert out.shape == q.shape and out.dtype == dtype
+    torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype])
+
+
+def test_flash_rejects_head_dims_it_cannot_pad(gen):
+    for d in (12, 136):
+        x = _randn(gen, (1, 8, 2, d), torch.bfloat16)
+        with pytest.raises(ValueError, match="the kernels take 64 and 128"):
+            flash_attention(x, x, x)
+
+
+def test_tiny_forward_use_flash_on_card(gen):
+    """tiny (head_dim 16) runs its prefill attention through the flash
+    kernel, padded to 64, and agrees with the plain attention."""
+    cfg = dataclasses.replace(llama.LlamaConfig.tiny(vocab_size=128),
+                              dtype=torch.float32)
+    params = llama.init_params(cfg, gen, device="cuda")
+    tokens = torch.randint(0, 128, (2, 40), generator=gen, device="cuda")
+    before = flash_attention.launches
+    flash = llama.forward(cfg, params, tokens, use_flash=True)
+    plain = llama.forward(cfg, params, tokens, use_flash=False)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + cfg.num_layers
+    torch.testing.assert_close(flash, plain, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("impl", ["grid", "rows"])
 def test_flash_tensor_cores_many_ctas(gen, impl):
     """The main shape: 32 heads x 32 q blocks of CTAs run the causal ring
     (grid) or the resident segments (rows) at once."""
