@@ -15,9 +15,12 @@ to find:
 - ``runtime.sched``  — the continuous-batching serving ``Scheduler`` over
   the tiered cache (admission, preemption and restore, device-reset
   recovery, tenant QoS, per-request flow and SLO accounting);
+- ``models.multichip`` — the KV pool striped over several device arenas
+  and moved over the engine's ICI model;
+- ``runtime.hbm``    — ``HbmRuntime``, which mirrors the UVM engine's HBM
+  tier onto the card (a drain thread, a copy stream, a page-locked shadow);
 - ``uvm``, ``runtime``, ``utils`` — the port's own ctypes bindings to the
-  native engine (``native/``, ``libtpurm.so``), the parts the tiered cache
-  and the scheduler need.
+  native engine (``native/``, ``libtpurm.so``).
 
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"`` (see ``device.resolve``).

@@ -1,17 +1,20 @@
 """Tracing, metrics and request-flow surface of the native engine.
 
-The port's copy of the part of the JAX package's ``utils/__init__.py`` that
-the scheduler and its tests use, with the same names:
+The port's own copy of the JAX package's ``utils/__init__.py``, with the
+same names:
 
+- diagnostics (native/src/diag.c, procfs.c): the journal text ring
+  (``journal_dump``), named counters, registry knobs as the engine reads
+  them (``registry_get``), and the procfs nodes (``procfs_read``,
+  ``procfs_list``, ``metrics_text``, the Prometheus exposition);
 - tputrace (native/src/trace.c): arm, disarm and clear the span rings,
   emit a span of a named site (``span``), read a site's latency histogram
-  count, export the Chrome trace-event JSON, and the Prometheus exposition
-  (``metrics_text``);
+  (count and quantiles), the ring accounting, and the Chrome trace-event
+  JSON export (as text, parsed, or saved to a file);
 - tpuflow (native/src/flow.c): mint flow ids (tenant << 48 | request <<
   16), open and close per-request blame ledgers, charge blame buckets, set
   the calling thread's flow context, feed and read the per-tenant TTFT and
   inter-token-latency histograms, and the top-K slow-flow report;
-- ``counter``: one monotonic named engine counter (vac, tpusplit, ...).
 
 All of it is process-wide state in the native library.
 """
@@ -20,7 +23,8 @@ from __future__ import annotations
 
 import ctypes
 import json
-from typing import Dict, List
+import os
+from typing import Dict, List, Optional
 
 from .runtime import native
 
@@ -30,10 +34,13 @@ FLOW_BUCKETS = ("queued", "preempted", "fault", "copy", "ici", "reset")
 #: SLO histogram kinds, in native TPU_SLO_* order.
 SLO_KINDS = ("ttft", "itl")
 
-#: Buffer sizes for the trace export, the metrics exposition and the
-#: slow-flow report.
+#: Buffer sizes for the trace export, the metrics exposition, the journal
+#: text ring, a procfs node, the procfs listing and the slow-flow report.
 TRACE_EXPORT_BYTES = 16 << 20
 METRICS_BYTES = 1 << 20
+JOURNAL_BYTES = 1 << 16
+PROCFS_BYTES = 1 << 16
+PROCFS_LIST_BYTES = 4096
 FLOW_REPORT_MAX = 64
 
 _bound = None
@@ -59,24 +66,15 @@ def _lib() -> ctypes.CDLL:
     global _bound
     if _bound is not None:
         return _bound
+    # The loader declares the journal, procfs, counter and trace calls.
     lib = native.load()
     u32, u64 = ctypes.c_uint32, ctypes.c_uint64
-    cp, sz = ctypes.c_char_p, ctypes.c_size_t
     for name in ("tpurmTraceStart", "tpurmTraceStop", "tpurmTraceReset"):
-        getattr(lib, name).argtypes = []
         getattr(lib, name).restype = None
-    lib.tpurmTraceExportJson.argtypes = [cp, sz]
-    lib.tpurmTraceExportJson.restype = sz
-    lib.tpurmTraceHistCountNs.argtypes = [u32]
-    lib.tpurmTraceHistCountNs.restype = u64
-    lib.tpurmTraceSiteName.argtypes = [u32]
-    lib.tpurmTraceSiteName.restype = cp
     lib.tpurmTraceBegin.argtypes = []
     lib.tpurmTraceBegin.restype = u64
     lib.tpurmTraceEnd.argtypes = [u32, u64, u64, u64]
     lib.tpurmTraceEnd.restype = None
-    lib.tpurmProcfsRead.argtypes = [cp, cp, sz]
-    lib.tpurmProcfsRead.restype = sz
     lib.tpurmFlowMint.argtypes = [u32, u32]
     lib.tpurmFlowMint.restype = u64
     lib.tpurmFlowOpen.argtypes = [u64]
@@ -101,15 +99,61 @@ def _lib() -> ctypes.CDLL:
     lib.tpurmSloBlameNs.restype = u64
     lib.tpurmTraceFlowSet.argtypes = [u64]
     lib.tpurmTraceFlowSet.restype = None
-    lib.tpurmCounterGet.argtypes = [cp]
-    lib.tpurmCounterGet.restype = u64
+    lib.tpurmTraceFlowGet.argtypes = []
+    lib.tpurmTraceFlowGet.restype = u64
     _bound = lib
     return lib
+
+
+def _read(fn, *args, size: int) -> str:
+    """Text that a native render call writes into a buffer of ``size``
+    bytes."""
+    buf = ctypes.create_string_buffer(size)
+    n = fn(*args, buf, size)
+    return buf.raw[:n].decode(errors="replace")
+
+
+# -------------------------------------------------------------- diagnostics
+
+def journal_dump() -> List[str]:
+    """The native journal's text ring, one line per entry."""
+    return [line for line in _read(_lib().tpurmJournalDump,
+                                   size=JOURNAL_BYTES).splitlines()
+            if line]
 
 
 def counter(name: str) -> int:
     """Monotonic named engine counter."""
     return _lib().tpurmCounterGet(name.encode())
+
+
+def counters(names) -> Dict[str, int]:
+    return {n: counter(n) for n in names}
+
+
+def registry_get(key: str, default: Optional[int] = None) -> Optional[int]:
+    """A registry knob read as the native engine reads it: the environment
+    variable ``TPUMEM_<KEY>`` (decimal or 0x hex); ``default`` when it is
+    unset or not a number."""
+    raw = os.environ.get("TPUMEM_" + key.upper())
+    if raw is None:
+        return default
+    try:
+        return int(raw, 0)
+    except ValueError:
+        return default
+
+
+def procfs_read(path: str) -> str:
+    """Render a procfs node (/proc/driver/tpurm/..., also the reference's
+    /proc/driver/nvidia* spellings); empty for unknown or debug-gated
+    nodes."""
+    return _read(_lib().tpurmProcfsRead, path.encode(), size=PROCFS_BYTES)
+
+
+def procfs_list() -> List[str]:
+    return [p for p in _read(_lib().tpurmProcfsList,
+                             size=PROCFS_LIST_BYTES).splitlines() if p]
 
 
 # ------------------------------------------------------------------ tracing
@@ -161,25 +205,57 @@ def trace_reset() -> None:
     _lib().tpurmTraceReset()
 
 
+def trace_armed() -> bool:
+    return bool(_lib().tpurmTraceIsArmed())
+
+
+def _site_id(site) -> int:
+    return trace_site(site) if isinstance(site, str) else int(site)
+
+
 def trace_hist_count(site) -> int:
     """Samples in a site's latency histogram (``site``: name or id)."""
-    sid = trace_site(site) if isinstance(site, str) else int(site)
-    return _lib().tpurmTraceHistCountNs(sid)
+    return _lib().tpurmTraceHistCountNs(_site_id(site))
+
+
+def trace_quantile_ns(site, q: float) -> int:
+    """Latency quantile ``q`` from a site's log-linear histogram (about 1%
+    relative error); ``site`` is a name ("fault.latency", ...) or an id.
+    0 when the histogram is empty."""
+    return _lib().tpurmTraceHistQuantileNs(_site_id(site), float(q))
+
+
+def trace_stats() -> Dict[str, int]:
+    """Ring accounting: records emitted, records lost, live rings."""
+    rec, drop, rings = ctypes.c_uint64(), ctypes.c_uint64(), ctypes.c_uint32()
+    _lib().tpurmTraceStats(ctypes.byref(rec), ctypes.byref(drop),
+                           ctypes.byref(rings))
+    return {"recorded": rec.value, "dropped": drop.value,
+            "rings": rings.value}
+
+
+def trace_export_json() -> str:
+    """The Chrome trace-event JSON (Perfetto, chrome://tracing)."""
+    return _read(_lib().tpurmTraceExportJson, size=TRACE_EXPORT_BYTES)
 
 
 def trace_export() -> dict:
     """The Chrome trace-event export, parsed: {"traceEvents": [...]}."""
-    buf = ctypes.create_string_buffer(TRACE_EXPORT_BYTES)
-    n = _lib().tpurmTraceExportJson(buf, TRACE_EXPORT_BYTES)
-    return json.loads(buf.raw[:n].decode(errors="replace"))
+    return json.loads(trace_export_json())
+
+
+def trace_save(path: str) -> str:
+    """Write the JSON export to ``path``; returns ``path``."""
+    text = trace_export_json()
+    with open(path, "w") as f:
+        f.write(text)
+    return path
 
 
 def metrics_text() -> str:
     """The Prometheus exposition (/proc/driver/tpurm/metrics body)."""
-    buf = ctypes.create_string_buffer(METRICS_BYTES)
-    n = _lib().tpurmProcfsRead(b"/proc/driver/tpurm/metrics", buf,
-                               METRICS_BYTES)
-    return buf.raw[:n].decode(errors="replace")
+    return _read(_lib().tpurmProcfsRead, b"/proc/driver/tpurm/metrics",
+                 size=METRICS_BYTES)
 
 
 # ------------------------------------------------------------------ tpuflow
@@ -206,6 +282,11 @@ def flow_set(flow: int) -> None:
     """Set the calling thread's flow context: spans it emits and CPU faults
     it takes now carry the request identity (0 clears it)."""
     _lib().tpurmTraceFlowSet(flow)
+
+
+def flow_get() -> int:
+    """The calling thread's flow context (0: none)."""
+    return _lib().tpurmTraceFlowGet()
 
 
 def flow_account(flow: int, bucket, ns: int) -> None:

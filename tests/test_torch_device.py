@@ -16,6 +16,7 @@ from open_gpu_kernel_modules_tpu_torch.models.convert import params_from_jax
 from open_gpu_kernel_modules_tpu_torch.ops import _build
 from open_gpu_kernel_modules_tpu_torch.ops.flash_attention import _flash_cuda
 from open_gpu_kernel_modules_tpu_torch.ops.paged_attention import _paged_cuda
+from open_gpu_kernel_modules_tpu_torch.runtime import hbm
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY = llama.LlamaConfig.tiny()
@@ -28,6 +29,7 @@ ENTRY_POINTS = {
     "PagedKVCache.create": lambda: serving.PagedKVCache.create(TINY, 1, 16),
     "TieredKVCache": lambda: serving.TieredKVCache(TINY, 1, 16),
     "params_from_jax": lambda: params_from_jax({"w": np.zeros(2)}),
+    "HbmRuntime": lambda: hbm.HbmRuntime(),
 }
 
 
@@ -72,6 +74,13 @@ def test_port_imports_no_jax():
             "import open_gpu_kernel_modules_tpu_torch.runtime.ici\n"
             "import open_gpu_kernel_modules_tpu_torch.runtime.tpusplit\n"
             "import open_gpu_kernel_modules_tpu_torch.uvm.vac\n"
+            "import open_gpu_kernel_modules_tpu_torch.uvm.ce\n"
+            "import open_gpu_kernel_modules_tpu_torch.runtime.hbm\n"
+            "from open_gpu_kernel_modules_tpu_torch import uvm, utils\n"
+            "from open_gpu_kernel_modules_tpu_torch.runtime import native\n"
+            "uvm.fault_stats_reset_windows(); uvm.ce.channels()\n"
+            "utils.trace_quantile_ns('fault.latency', 0.99)\n"
+            "native.RmClient().close()\n"
             "bad = [m for m in sys.modules if m in ('jax', 'ml_dtypes') or "
             "m.startswith(('jax.', 'ml_dtypes.', "
             "'open_gpu_kernel_modules_tpu.')) or "

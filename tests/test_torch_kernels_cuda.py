@@ -363,3 +363,69 @@ def test_tiny_tiered_decode_on_card_matches_cpu(gen):
             cache.close()
     assert (outs[0][0] == outs[1][0]).all()
     assert outs[0][1] == outs[1][1]
+
+
+def test_hbm_runtime_on_card(gen):
+    """The real-arena runtime on the card: the shadow is page-locked, a
+    fault into the engine's HBM tier lands in the card's arena (read there
+    page by page, equal to the pattern), a card computation written back
+    through ``write_arena`` is what the CPU then reads, and close() unpins
+    the shadow so a second runtime pins it again."""
+    import numpy as np
+
+    from open_gpu_kernel_modules_tpu_torch import uvm
+    from open_gpu_kernel_modules_tpu_torch.runtime import hbm
+
+    page = 64 * 1024
+    with hbm.HbmRuntime(device="cuda") as rt:
+        assert rt.is_real and rt.shadow_pinned
+        with uvm.VaSpace() as vs:
+            buf = vs.alloc(1 << 20)
+            pattern = np.random.default_rng(0).integers(
+                0, 256, buf.nbytes, dtype=np.uint8)
+            buf.view()[:] = pattern
+            buf.device_access(dev=0)
+            rt.fence()
+            want = torch.from_numpy(pattern).cuda()
+            for off in range(0, buf.nbytes, page):
+                pres = buf.residency(offset=off)
+                assert pres.hbm
+                got = rt.read_arena(pres.hbm_offset, page)
+                assert got.is_cuda and torch.equal(got, want[off:off + page])
+            off = buf.residency().hbm_offset
+            rt.write_arena(off, rt.read_arena(off, page) * 2 + 1)
+            assert (buf.view()[:page] == pattern[:page] * 2 + 1).all()
+            assert (buf.view()[page:] == pattern[page:]).all()
+            buf.free()
+    with hbm.HbmRuntime(device="cuda") as rt2:
+        assert rt2.shadow_pinned
+        rt2.fence()
+
+
+@pytest.mark.parametrize("waiter", ["stream", "event"])
+def test_copy_stream_waits_release_the_gil(gen, waiter):
+    """The drain thread of ``runtime.hbm`` waits for its copy stream; the
+    wait must release the GIL, or the thread the engine's CPU fault
+    service needs would starve every other Python thread meanwhile."""
+    import threading
+
+    stream = torch.cuda.Stream()
+    with torch.cuda.stream(stream):
+        torch.cuda._sleep(200_000_000)          # about 0.1 s of the card
+        event = torch.cuda.Event()
+        event.record()
+    started, done = threading.Event(), threading.Event()
+
+    def wait():
+        started.set()
+        (stream if waiter == "stream" else event).synchronize()
+        done.set()
+
+    t = threading.Thread(target=wait)
+    t.start()
+    started.wait()
+    ticks = 0
+    while not done.is_set():
+        ticks += 1
+    t.join()
+    assert ticks > 10_000
