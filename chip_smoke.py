@@ -82,7 +82,24 @@ width (random weights from a seed):
    and engine GB/s, the upload busy share, fault p50/p95/p99 and wake/svc
    p50 µs, evictions, resyncs, CE channel bytes, in-HBM copy GB/s and the
    north-star ratio, migrate and CXL GB/s, all of the cold pair; and the
-   warm pairs' engine GB/s, REAL against alone.
+   warm pairs' engine GB/s, REAL against alone;
+11. training (runs last: its steps update the parameters in place):
+   ``loss_fn``, ``.backward()`` and JAX's SGD update, three times on one
+   seeded B=1 x S=1024 batch at 32 layers, bf16; the losses finite, every
+   gradient leaf finite and non-zero, the autograd loss equal to a
+   ``no_grad`` one; step ms, training tok/s, peak memory and the busy share
+   of one profiled, untimed step; then at 2 layers, fp32, S=128 the card's
+   loss and the gradients of wq[0] and lm_head against the CPU's.  No kernel
+   launches;
+12. parallel (runs after phase 4, before the 8B parameters exist): eight
+   rank processes on the card over gloo (``parallel.mesh.BACKEND``).  (a)
+   ``entry.dryrun_multichip(8)`` as a user calls it; (b) dp2 x tp2 x sp2 at
+   Llama-3-8B widths cut to 2 layers, tokens (4, 256): the sharded SGD
+   step's loss, the updated shards and gradients of wq[0], wo[0] and
+   lm_head against one unsharded step computed first; ring and Ulysses
+   attention at S=2048, H=32, D=128 equal at fp32 and each within the flash
+   limits of the plain fp32 version in bf16.  B2 launches inside the ranks'
+   Ulysses calls count toward its ``launches``.
 
 Prints one ``{"kernels": [...]}`` line with each kernel's launches on the
 main path, its error against the plain version, its time, its bound, the
@@ -1684,6 +1701,310 @@ def phase_hbm_real(smi):
     return rec
 
 
+# ----------------------------------------------------------------- phase 11
+
+# Training at full width: B=1 x S=1024 of Llama-3-8B at 32 layers, bf16.
+TRAIN = dict(batch=1, seq=1024, steps=3, lr=1e-3)
+# The card against the CPU at fp32 (no TF32, device.py): 2 layers, B=1 x
+# S=128; only the order of sums differs.
+TRAIN_CPU = dict(layers=2, seq=128, rtol=1e-3, atol=1e-5)
+
+
+def phase_train(cfg, params, gen, smi):
+    """Three SGD steps (``entry.sgd_step``) on one seeded batch, then one
+    profiled (untimed) step; then the card against the CPU at fp32.  Each
+    step's parameters replace those in ``params``, so the caller's are
+    freed as the steps go."""
+    import dataclasses
+    from open_gpu_kernel_modules_tpu_torch import entry
+    from open_gpu_kernel_modules_tpu_torch.models import llama
+    from open_gpu_kernel_modules_tpu_torch.ops import (flash_attention,
+                                                       paged_attention)
+    t = TRAIN
+    tokens = torch.randint(0, cfg.vocab_size, (t["batch"], t["seq"]),
+                           generator=gen, device="cuda")
+    targets = tokens.roll(-1, 1)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        plain = llama.loss_fn(cfg, params, tokens, targets).item()
+    reset_counts()
+    losses, step_ms = [], []
+    for i in range(t["steps"]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, new, grads = entry.sgd_step(cfg, params, tokens, targets,
+                                          lr=t["lr"])
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        params.update(new)
+        del new
+        losses.append(loss)
+        if i == 0:
+            for g in llama.tree_leaves(grads):
+                check(bool(torch.isfinite(g).all()), "train: a gradient "
+                      "leaf is not finite")
+                check(bool((g != 0).any()), "train: a gradient leaf is 0")
+            check(abs(loss - plain) <= 1e-6 * abs(plain),
+                  f"train: autograd loss {loss} != no_grad loss {plain}")
+        del grads
+    launched = (paged_attention.launches, flash_attention.launches,
+                flash_attention.rows_launches)
+    check(launched == (0, 0, 0), f"train: kernels launched {launched}")
+    check(all(np.isfinite(losses)), f"train: losses {losses}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    tok_s = t["batch"] * t["seq"] * 1e3 / float(np.mean(step_ms[1:]))
+    host, kern, rows = profiled(
+        lambda: entry.sgd_step(cfg, params, tokens, targets, lr=t["lr"]))
+    busy = "not measured" if kern is None else f"{kern / host:.3f}"
+    log(f"train: Llama-3-8B {cfg.num_layers} layers bf16 B={t['batch']} "
+        f"S={t['seq']}: losses {[round(x, 4) for x in losses]} (no_grad "
+        f"{plain:.4f}); step ms {[round(x, 1) for x in step_ms]} (host "
+        f"clock, synced); {tok_s:.1f} training tok/s (steps 2-3); peak "
+        f"{peak:.1f} GiB; profiled step {host:.1f} ms host, kernels "
+        f"{kern if kern is None else round(kern, 1)} ms, busy share {busy}")
+    for name, ms in rows[:5]:
+        log(f"  {ms:8.3f} ms  {name[:90]}")
+
+    # The card against the CPU: the same fp32 parameters, tokens, loss and
+    # the gradients of wq[0] and lm_head.
+    c = TRAIN_CPU
+    ccfg = dataclasses.replace(cfg, num_layers=c["layers"],
+                               dtype=torch.float32)
+    cgen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    card = llama.init_params(ccfg, cgen, device="cuda")
+    ctoks = torch.randint(0, cfg.vocab_size, (1, c["seq"]), generator=cgen,
+                          device="cuda")
+    host_params = {k: ({kk: vv.cpu() for kk, vv in v.items()}
+                       if isinstance(v, dict) else v.cpu())
+                   for k, v in card.items()}
+    got = {}
+    t0 = time.perf_counter()
+    for where, p, toks in (("card", card, ctoks),
+                           ("cpu", host_params, ctoks.cpu())):
+        loss, _, grads = entry.sgd_step(ccfg, p, toks, toks.roll(-1, 1),
+                                        lr=t["lr"])
+        got[where] = (loss, grads["layers"]["wq"][0].cpu(),
+                      grads["lm_head"].cpu())
+    del card, host_params, grads, _
+    torch.cuda.empty_cache()
+    errs = {}
+    for i, name in enumerate(("loss", "wq[0] grad", "lm_head grad")):
+        a = torch.as_tensor(got["card"][i])
+        b = torch.as_tensor(got["cpu"][i])
+        errs[name] = max_err(a, b)
+        check(bool(torch.isclose(a, b, rtol=c["rtol"], atol=c["atol"]).all()),
+              f"train: card and CPU {name} differ by {errs[name]} beyond "
+              f"rtol {c['rtol']}, atol {c['atol']}")
+    log(f"train: card vs CPU at fp32, {c['layers']} layers, S={c['seq']}: "
+        f"max |diff| {errs} (rtol {c['rtol']}, atol {c['atol']}); "
+        f"{time.perf_counter() - t0:.1f} s")
+    return dict(losses=losses, step_ms=step_ms, tok_s=tok_s,
+                peak_gib=peak, busy=busy, card=smi)
+
+
+# ----------------------------------------------------------------- phase 12
+
+# (b): the parallel API at Llama-3-8B widths with the depth cut to 2 layers,
+# dp2 x tp2 x sp2 in 8 rank processes on the one card.
+PAR = dict(mesh=(2, 2, 2), layers=2, tokens=(4, 256), attn=(2, 2048, 32, 128))
+# bf16 limits of one sharded step against the unsharded one (PERF.md
+# section 2): the loss within 1e-2 relative; gradients within 5% of their
+# largest magnitude (bf16 activations summed over tp in another order);
+# updated weights within one bf16 ulp (2^-7 relative).  lr * g is mostly
+# below the weights' bf16 resolution, so a step moves few weights: those
+# that moved in exactly one of the two steps must be at most a quarter of
+# those the unsharded step moved, which fails a step that moved none or
+# moved others.
+PAR_TOL = dict(loss_rtol=1e-2, grad_frac=0.05, param_rtol=2 ** -7,
+               param_atol=1e-6, moved_frac=0.25)
+
+
+def _par_rank(cfg, tokens, targets, ref_path):
+    """One rank of phase 12(b): the sharded train step against the
+    unsharded reference the parent saved, then ring and Ulysses attention
+    at S=2048 in fp32 and bf16."""
+    from open_gpu_kernel_modules_tpu_torch import entry
+    from open_gpu_kernel_modules_tpu_torch.models import llama
+    from open_gpu_kernel_modules_tpu_torch.ops.flash_attention import (
+        flash_attention, flash_attention_reference)
+    from open_gpu_kernel_modules_tpu_torch.parallel import (
+        make_mesh, ring_attention_sharded, shard_params,
+        ulysses_attention_sharded)
+    torch.cuda.reset_peak_memory_stats()
+    rec, ms = {}, {}
+    t0 = time.perf_counter()
+    mesh = make_mesh(*PAR["mesh"], device="cuda")
+    d, t, s = mesh.get_coordinate()
+    full = llama.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(SEED + 12), "cuda")
+    local = shard_params(full, mesh, cfg)
+    del full
+    torch.cuda.synchronize()
+    ms["init"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    loss, new, grads = entry.sgd_step(
+        cfg, local, torch.from_numpy(tokens).cuda(),
+        torch.from_numpy(targets).cuda(), mesh)
+    torch.cuda.synchronize()
+    ms["train_step"] = (time.perf_counter() - t0) * 1e3
+    # Keep only the compared leaves: eight ranks share the card.
+    picked = [("wq[0]", local["layers"]["wq"][0], new["layers"]["wq"][0],
+               grads["layers"]["wq"][0], 1),
+              ("wo[0]", local["layers"]["wo"][0], new["layers"]["wo"][0],
+               grads["layers"]["wo"][0], 0),
+              ("lm_head", local["lm_head"], new["lm_head"], grads["lm_head"],
+               0)]
+    del local, new, grads
+    torch.cuda.empty_cache()
+    ref = torch.load(ref_path, mmap=True)
+    tp = PAR["mesh"][1]
+    rec["loss"], rec["ref_loss"] = loss, ref["loss"]
+    check(abs(loss - ref["loss"]) <= PAR_TOL["loss_rtol"] * abs(ref["loss"]),
+          f"parallel: sharded loss {loss} vs unsharded {ref['loss']}")
+    # (name, before, after, gradient, the dim split over tp), compared 512
+    # rows at a time so no whole fp32 copy of lm_head's shard is made.
+    for name, before, after, grad, dim in picked:
+        want = ref[name].chunk(tp, dim)[t]
+        want_g = ref[name + " grad"].chunk(tp, dim)[t]
+        err = gerr = gmax = moved = ref_moved = odd = 0.0
+        ok = True
+        for i in range(0, after.shape[0], 512):
+            rows = slice(i, i + 512)
+            w_rows = want[rows].cuda()
+            a, w = after[rows].float(), w_rows.float()
+            g, wg = grad[rows].float(), want_g[rows].cuda().float()
+            err = max(err, max_err(a, w))
+            gerr = max(gerr, max_err(g, wg))
+            gmax = max(gmax, float(wg.abs().max()))
+            mine, theirs = after[rows] != before[rows], w_rows != before[rows]
+            moved += float(mine.sum())
+            ref_moved += float(theirs.sum())
+            odd += float((mine != theirs).sum())
+            ok &= bool(((a - w).abs() <= PAR_TOL["param_atol"] +
+                        PAR_TOL["param_rtol"] * w.abs()).all())
+        gtol = PAR_TOL["grad_frac"] * gmax
+        rec[name] = dict(max_abs_err=err, grad_err=gerr, grad_tol=gtol,
+                         moved=moved / after.numel(),
+                         ref_moved=ref_moved / after.numel(),
+                         moved_apart=odd / after.numel())
+        check(ok, f"parallel: updated {name} differs by {err}")
+        check(gerr <= gtol, f"parallel: {name} gradient differs by {gerr} "
+              f"(limit {gtol})")
+        check(0 < ref_moved and odd <= PAR_TOL["moved_frac"] * ref_moved,
+              f"parallel: {name}: {odd:.0f} weights moved in one of the "
+              f"sharded and unsharded steps only, of {ref_moved:.0f} the "
+              f"unsharded step moved (limit {PAR_TOL['moved_frac']})")
+    del picked, ref
+    torch.cuda.empty_cache()
+
+    # Ring and Ulysses at S=2048: equal at fp32, each within the flash
+    # kernel's bf16 limits of the plain fp32 attention in bf16.
+    b, sl, h, hd = PAR["attn"]
+    g = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    q, k, v = (torch.randn((b, sl, h, hd), generator=g, device="cuda")
+               for _ in range(3))
+    launches = flash_attention.launches
+    for dtype in (torch.float32, torch.bfloat16):
+        x = [a.to(dtype) for a in (q, k, v)]
+        t0 = time.perf_counter()
+        ring = ring_attention_sharded(*x, mesh)
+        torch.cuda.synchronize()
+        ms[f"ring_{str(dtype)[6:]}"] = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        uly = ulysses_attention_sharded(*x, mesh)
+        torch.cuda.synchronize()
+        ms[f"ulysses_{str(dtype)[6:]}"] = (time.perf_counter() - t0) * 1e3
+        if dtype == torch.float32:
+            err = max_err(ring, uly)
+            rec["ring_vs_ulysses_fp32"] = err
+            check(err <= 2e-4, f"parallel: ring and Ulysses differ by {err}")
+            continue
+        row = slice(d, d + 1)
+        plain = flash_attention_reference(*(a[row].float() for a in x))
+        for name, out in (("ring", ring), ("ulysses", uly)):
+            rec[f"{name}_bf16_err"] = max_err(out[row], plain)
+            check(within_tol(out[row], plain), f"parallel: {name} bf16 "
+                  f"beyond {TOL[torch.bfloat16]} of the plain fp32 version")
+        del plain
+    rec["flash_launches"] = flash_attention.launches - launches
+    rec["ms"] = ms
+    rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    return rec
+
+
+def phase_parallel(smi):
+    """(a) ``entry.dryrun_multichip(8)`` as a user calls it; (b) the same
+    API at Llama-3-8B widths (2 layers) on dp2 x tp2 x sp2, held against one
+    unsharded step computed here first.  Runs before the 8B parameters
+    exist: eight ranks on one card, each with its own CUDA context.  Returns
+    the flash kernel's launches inside the ranks' Ulysses calls."""
+    import dataclasses
+    import tempfile
+    from open_gpu_kernel_modules_tpu_torch import entry
+    from open_gpu_kernel_modules_tpu_torch.models import llama
+    from open_gpu_kernel_modules_tpu_torch.parallel import mesh as pmesh
+    log(f"parallel: backend {pmesh.BACKEND!r} (NCCL refuses two ranks of "
+        f"one communicator on one card; gloo stages CUDA tensors through "
+        f"the host); {torch.cuda.device_count()} card(s)")
+    t0 = time.perf_counter()
+    dry = entry.dryrun_multichip(8)
+    dry_s = time.perf_counter() - t0
+    launches = dry["flash_launches"]
+    check(launches == 8, f"dryrun: B2 launched {launches} times in the "
+          f"ranks' Ulysses calls, expected 8")
+    for r, rk in enumerate(dry["ranks"]):
+        log(f"  dryrun rank {r}: train {rk['train_ms']:.1f} ms, ring "
+            f"{rk['ring_ms']:.1f} ms, Ulysses {rk['ulysses_ms']:.1f} ms, "
+            f"ring-Ulysses {rk['ring_ulysses_err']:.3g}, peak "
+            f"{rk['peak_mib']:.1f} MiB")
+    log(f"parallel (a): dryrun_multichip(8) {dry_s:.1f} s (ranks "
+        f"{dry['ranks_s']:.1f} s, native ICI {dry['native_ici_s']:.1f} s)")
+
+    cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(),
+                              num_layers=PAR["layers"])
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    tokens = torch.randint(0, cfg.vocab_size, PAR["tokens"], generator=gen,
+                           device="cuda")
+    targets = tokens.roll(-1, 1)
+    t0 = time.perf_counter()
+    params = llama.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(SEED + 12), "cuda")
+    loss, new, grads = entry.sgd_step(cfg, params, tokens, targets)
+    torch.cuda.synchronize()
+    ref_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        ref_path = os.path.join(tmp, "ref.pt")
+        torch.save({"loss": loss,
+                    "wq[0]": new["layers"]["wq"][0].cpu(),
+                    "wq[0] grad": grads["layers"]["wq"][0].cpu(),
+                    "wo[0]": new["layers"]["wo"][0].cpu(),
+                    "wo[0] grad": grads["layers"]["wo"][0].cpu(),
+                    "lm_head": new["lm_head"].cpu(),
+                    "lm_head grad": grads["lm_head"].cpu()}, ref_path)
+        del params, new, grads
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ranks = pmesh.run_ranks(_par_rank, 8, (cfg, tokens.cpu().numpy(),
+                                               targets.cpu().numpy(),
+                                               ref_path),
+                                device="cuda", timeout_s=600)
+        par_s = time.perf_counter() - t0
+    log("  parallel rank 0: " + json.dumps(ranks[0]))
+    for r, rk in enumerate(ranks[1:], 1):
+        log(f"  parallel rank {r}: loss {rk['loss']:.6f}, ms "
+            f"{json.dumps({k: round(v, 1) for k, v in rk['ms'].items()})},"
+            f" peak {rk['peak_gib']:.2f} GiB")
+    b_launches = sum(rk["flash_launches"] for rk in ranks)
+    check(b_launches == 16, f"parallel (b): B2 launched {b_launches} times "
+          f"in the ranks, expected 16 (fp32 and bf16 Ulysses, 8 ranks)")
+    log(f"parallel (b): dp2xtp2xsp2 Llama-3-8B widths, {cfg.num_layers} "
+        f"layers, tokens {PAR['tokens']}: loss {ranks[0]['loss']:.4f} "
+        f"sharded vs {loss:.4f} unsharded; unsharded step {ref_s:.1f} s; "
+        f"8 ranks {par_s:.1f} s; B2 launches {b_launches}; {smi}")
+    return launches + b_launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1697,6 +2018,10 @@ def main() -> int:
     b1 = phase_paged()
     b2 = phase_flash()
     b3, b3_launches = phase_flash_rows()
+    # Eight rank processes, each with its own CUDA context, before the 8B
+    # parameters take their 16 GB.
+    reset_counts()
+    b2_launches = phase_parallel(smi)
 
     cfg = llama.LlamaConfig.llama3_8b()
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
@@ -1709,12 +2034,14 @@ def main() -> int:
     # B1's main-path launches: dense `generate`, tiered `decode_rounds`
     # and the Scheduler's rounds, each path's count read from zero.
     b1_launches = phase_serving(cfg, params, gen)
-    b2_launches = phase_flash_forward(cfg, params, gen)
+    b2_launches += phase_flash_forward(cfg, params, gen)
     tiered_launches, *tiered = phase_tiered(cfg, params, gen)
     b1_launches += tiered_launches
     b1_launches += phase_sched(cfg, params, gen)
     b1_launches += phase_multichip(cfg, params, gen, tiered, smi)
     phase_hbm_real(smi)
+    # Last: its SGD steps replace the parameters.
+    phase_train(cfg, params, gen, smi)
 
     # Which body each kernel runs per dtype at the main shapes: all three
     # take the tensor cores in bf16 and keep FMAs in fp32.

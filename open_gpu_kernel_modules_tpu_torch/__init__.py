@@ -20,7 +20,13 @@ to find:
 - ``runtime.hbm``    — ``HbmRuntime``, which mirrors the UVM engine's HBM
   tier onto the card (a drain thread, a copy stream, a page-locked shadow);
 - ``uvm``, ``runtime``, ``utils`` — the port's own ctypes bindings to the
-  native engine (``native/``, ``libtpurm.so``).
+  native engine (``native/``, ``libtpurm.so``);
+- ``parallel``       — the dp/tp/sp device mesh, Megatron shards with the
+  tensor-parallel forward, ring and Ulysses attention, on
+  ``torch.distributed``;
+- ``entry``          — the single-card forward check, the SGD train step
+  and the multichip dryrun (``python -m open_gpu_kernel_modules_tpu_torch.
+  entry``).
 
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"`` (see ``device.resolve``).

@@ -6,6 +6,7 @@ from .llama import (
     forward,
     forward_with_cache,
     init_kv_cache,
+    loss_fn,
 )
 
 __all__ = [
@@ -14,4 +15,5 @@ __all__ = [
     "forward",
     "forward_with_cache",
     "init_kv_cache",
+    "loss_fn",
 ]

@@ -10,12 +10,15 @@ Python loop over that axis where JAX runs ``lax.scan``.  Weights are stored
 - RoPE rotates split halves of the head dimension, not interleaved pairs.
 - ``forward(use_flash=True)`` swaps the plain attention for the flash
   kernel (``ops.flash_attention``), the prefill path on the card.
+- ``loss_fn`` is the training objective.  Its gradient is plain autograd
+  through ``forward``: the parameters may carry ``requires_grad``, and
+  ``layers`` hands out views, so gradients reach the stacked leaves.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -104,9 +107,33 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator,
     }
 
 
-def layer_params(params: Params, i: int) -> Dict[str, torch.Tensor]:
-    """Layer ``i``'s slice of the stacked layer tensors (views, no copy)."""
-    return {k: v[i] for k, v in params["layers"].items()}
+def layers(params: Params) -> List[Dict[str, torch.Tensor]]:
+    """Each layer's slice of the stacked layer tensors (views, no copy).
+
+    One ``unbind`` of each stacked tensor, whose backward stacks the
+    layers' gradients into the leaf at once; indexing layer by layer would
+    make each layer's backward add a zero-filled [L, ...] gradient into the
+    leaf, L^2 layers' worth of bytes a step."""
+    names = list(params["layers"])
+    return [dict(zip(names, views)) for views in
+            zip(*(params["layers"][k].unbind(0) for k in names))]
+
+
+def tree_map(fn, *trees):
+    """``fn`` over the leaves of parameter trees of one structure (nested
+    dicts), leaf by leaf, into a tree of that structure."""
+    return {k: tree_map(fn, *(t[k] for t in trees))
+            if isinstance(trees[0][k], dict) else fn(*(t[k] for t in trees))
+            for k in trees[0]}
+
+
+def tree_leaves(tree):
+    """The leaves of a parameter tree, in ``tree_map``'s order."""
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from tree_leaves(v)
+        else:
+            yield v
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
@@ -226,9 +253,8 @@ def forward(cfg: LlamaConfig, params: Params, tokens: torch.Tensor,
     positions = torch.arange(s, device=tokens.device)[None, :].expand(b, s)
     cos, sin = rope_table(cfg, positions)
     mask = None if use_flash else causal_mask(s, s, device=tokens.device)
-    for i in range(cfg.num_layers):
-        x = _layer(cfg, x, layer_params(params, i), cos, sin, mask,
-                   use_flash=use_flash)
+    for lp in layers(params):
+        x = _layer(cfg, x, lp, cos, sin, mask, use_flash=use_flash)
     return final_logits(cfg, params, x)
 
 
@@ -261,7 +287,16 @@ def forward_with_cache(cfg: LlamaConfig, params: Params,
     # pass right-sized caches): key j visible iff j <= pos + i.
     smax = kv[0].shape[2]
     mask = causal_mask(s, smax, offset=pos, device=device)
-    for i in range(cfg.num_layers):
-        x = _layer(cfg, x, layer_params(params, i), cos, sin, mask,
-                   (kv[0][i], kv[1][i]), pos)
+    for i, lp in enumerate(layers(params)):
+        x = _layer(cfg, x, lp, cos, sin, mask, (kv[0][i], kv[1][i]), pos)
     return final_logits(cfg, params, x), kv
+
+
+def loss_fn(cfg: LlamaConfig, params: Params, tokens: torch.Tensor,
+            targets: torch.Tensor) -> torch.Tensor:
+    """Next-token cross-entropy (the dryrun's training objective): fp32
+    ``log_softmax`` over ``forward``'s logits (plain attention, as JAX),
+    the targets' log-probabilities gathered, their mean negated."""
+    logp = torch.log_softmax(forward(cfg, params, tokens), dim=-1)
+    nll = -logp.gather(-1, targets[..., None].long())[..., 0]
+    return nll.mean()

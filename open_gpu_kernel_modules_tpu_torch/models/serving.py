@@ -130,8 +130,7 @@ def decode_step(cfg: llama.LlamaConfig, params: Dict, tokens: torch.Tensor,
     slot = _slots(cache, pos.clamp(max=cache.max_len - 1)[:, None])[:, 0]
     seq_lens_next = pos + 1
 
-    for i in range(cfg.num_layers):
-        lp = llama.layer_params(params, i)
+    for i, lp in enumerate(llama.layers(params)):
         attn_in = llama.rms_norm(x, lp["attn_norm"], cfg.rms_eps)
         q = (attn_in @ lp["wq"]).reshape(b, 1, nh, hd)
         k = (attn_in @ lp["wk"]).reshape(b, 1, nkv, hd)

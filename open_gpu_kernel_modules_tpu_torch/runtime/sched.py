@@ -190,7 +190,8 @@ class Scheduler:
     one, ``models.multichip.make_multichip_cache``) instead of a new
     managed one; the shape arguments are then the cache's, and so is the
     device.  ``disagg`` (a ``tpusplit.DisaggConfig``) needs a multichip
-    cache.
+    cache.  ``blame_tokens`` records, for every emitted token gap, its
+    stall-inclusive ITL and the blame that landed in it (``token_blame``).
     """
 
     def __init__(self, cfg: llama.LlamaConfig, params,
@@ -199,6 +200,7 @@ class Scheduler:
                  tokens_per_round: int = 8,
                  admit_retries: int = 3,
                  cache: Optional[serving.TieredKVCache] = None,
+                 blame_tokens: bool = False,
                  disagg: Optional[_tpusplit.DisaggConfig] = None,
                  device: DeviceLike = None):
         if cache is None:
@@ -256,6 +258,11 @@ class Scheduler:
         # with its owning request's flow).
         if self._managed:
             backing.flow_of_page = self._flow_of_page
+        # Per-token blame capture (the bench's "where did the p99 token's
+        # milliseconds go"): one flow_report and a dict diff per round.
+        self._blame_tokens = blame_tokens
+        self.token_blame: List[Dict] = []
+        self._blame_snap: Dict[int, Dict[str, int]] = {}
         # tpusplit: each admitted stream prefills against
         # disagg.prefill_dev, then its slot's records SHIP (a vac
         # transaction riding the request's flow) to its decode home.
@@ -397,6 +404,10 @@ class Scheduler:
     def _tenant_pages(self, tid: int) -> int:
         return sum(self._seq_pages(r) for r in self._running.values()
                    if r.tenant == tid)
+
+    def free_device_pages(self) -> int:
+        """Slot-pool headroom the admission gate checks against."""
+        return self.cache.n_slots - self._projected_pages()
 
     # -------------------------------------------------------- preemption
 
@@ -1031,6 +1042,10 @@ class Scheduler:
             # Close park windows at the stream's first token after them.
             for seq in ids:
                 self._park_account(self._running[seq])
+            blame_now = None
+            if self._blame_tokens:
+                blame_now = {f["flow"]: f["blame_ns"]
+                             for f in _utils.flow_report(256)}
             for i, seq in enumerate(ids):
                 req = self._running[seq]
                 req._chunks.append(toks[:, i])
@@ -1057,6 +1072,25 @@ class Scheduler:
                 req._last_emit_ns = emit_ns
                 if req.flow:
                     _utils.flow_tokens(req.flow, tpr)
+                if blame_now is not None:
+                    # The native ledger is the one blame source: the gap's
+                    # breakdown is its delta since the stream's previous
+                    # emission.
+                    key = req.flow & ~0xFFFF
+                    cur = blame_now.get(key, {})
+                    prev = self._blame_snap.get(key, {})
+                    gap = {b: cur.get(b, 0) - prev.get(b, 0) for b in cur
+                           if cur.get(b, 0) > prev.get(b, 0)}
+                    self._blame_snap[key] = dict(cur)
+                    if len(self.token_blame) < 100000:
+                        # blame_ns sums the buckets charged inside the
+                        # stall-inclusive window gap_ns.
+                        self.token_blame.append({
+                            "rid": req.rid, "tenant": req.tenant,
+                            "round": self.stats["rounds"],
+                            "itl_ns": stall_itl, "gap_ns": gap_ns,
+                            "blame_ns": gap,
+                        })
                 req.decoded += tpr
                 self._cur_tok[seq] = toks[-1, i]
             self.stats["rounds"] += 1

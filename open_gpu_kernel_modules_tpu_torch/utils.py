@@ -311,12 +311,12 @@ def flow_reset() -> None:
     _lib().tpurmFlowResetAll()
 
 
-def flow_report() -> List[Dict]:
-    """Top-K slow flows (K = FLOW_REPORT_MAX), most-blamed first: one dict
+def flow_report(max_flows: int = FLOW_REPORT_MAX) -> List[Dict]:
+    """Top-K slow flows (K = ``max_flows``), most-blamed first: one dict
     per flow with the ledger fields and a per-bucket blame map (ns)."""
-    buf = (_FlowRec * FLOW_REPORT_MAX)()
+    buf = (_FlowRec * max_flows)()
     n = _lib().tpurmFlowReport(ctypes.cast(buf, ctypes.c_void_p),
-                               FLOW_REPORT_MAX)
+                               max_flows)
     return [{"flow": r.flow,
              "tenant": r.tenant,
              "request": (r.flow >> 16) & 0xFFFFFFFF,

@@ -11,11 +11,13 @@ import pytest
 import torch
 
 from open_gpu_kernel_modules_tpu_torch import device as tdevice
+from open_gpu_kernel_modules_tpu_torch import entry
 from open_gpu_kernel_modules_tpu_torch.models import llama, serving
 from open_gpu_kernel_modules_tpu_torch.models.convert import params_from_jax
 from open_gpu_kernel_modules_tpu_torch.ops import _build
 from open_gpu_kernel_modules_tpu_torch.ops.flash_attention import _flash_cuda
 from open_gpu_kernel_modules_tpu_torch.ops.paged_attention import _paged_cuda
+from open_gpu_kernel_modules_tpu_torch.parallel import mesh as pmesh
 from open_gpu_kernel_modules_tpu_torch.runtime import hbm
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -30,6 +32,9 @@ ENTRY_POINTS = {
     "TieredKVCache": lambda: serving.TieredKVCache(TINY, 1, 16),
     "params_from_jax": lambda: params_from_jax({"w": np.zeros(2)}),
     "HbmRuntime": lambda: hbm.HbmRuntime(),
+    "entry": lambda: entry.entry(),
+    "dryrun_multichip": lambda: entry.dryrun_multichip(2),
+    "run_ranks": lambda: pmesh.run_ranks(print, 2),
 }
 
 
@@ -76,6 +81,11 @@ def test_port_imports_no_jax():
             "import open_gpu_kernel_modules_tpu_torch.uvm.vac\n"
             "import open_gpu_kernel_modules_tpu_torch.uvm.ce\n"
             "import open_gpu_kernel_modules_tpu_torch.runtime.hbm\n"
+            "import open_gpu_kernel_modules_tpu_torch.parallel\n"
+            "import open_gpu_kernel_modules_tpu_torch.parallel.mesh\n"
+            "import open_gpu_kernel_modules_tpu_torch.parallel.ring_attention\n"
+            "import open_gpu_kernel_modules_tpu_torch.parallel.ulysses\n"
+            "import open_gpu_kernel_modules_tpu_torch.entry\n"
             "from open_gpu_kernel_modules_tpu_torch import uvm, utils\n"
             "from open_gpu_kernel_modules_tpu_torch.runtime import native\n"
             "uvm.fault_stats_reset_windows(); uvm.ce.channels()\n"

@@ -236,6 +236,56 @@ def test_tiny_forward_use_flash_on_card(gen):
     torch.testing.assert_close(flash, plain, atol=1e-4, rtol=1e-4)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_at_a_ulysses_local_shape(gen, dtype):
+    """B2 at the shape Ulysses hands it in chip_smoke's parallel phase:
+    Llama-3-8B's 32 heads over sp=2 (16 local heads), the full S=2048,
+    D=128, made contiguous by the head/sequence reshard."""
+    q, k, v = (_randn(gen, (1, 2, 2048, 16, 128), dtype)
+               .permute(1, 0, 2, 3, 4)[1] for _ in range(3))
+    q, k, v = (x.reshape(1, 2048, 16, 128) for x in (q, k, v))
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, causal=True)
+    ref = flash_attention_reference(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype])
+
+
+def _sp_attention_rank(dtype):
+    """One rank of test_sequence_parallel_attention_on_card."""
+    from open_gpu_kernel_modules_tpu_torch.parallel import (
+        make_mesh, ring_attention_sharded, ulysses_attention_sharded)
+
+    mesh = make_mesh(1, 1, 2, "cuda")
+    g = torch.Generator(device="cuda").manual_seed(5)
+    q, k, v = (torch.randn((2, 256, 8, 128), generator=g, device="cuda")
+               .to(dtype) for _ in range(3))
+    before = flash_attention.launches
+    ring = ring_attention_sharded(q, k, v, mesh)
+    uly = ulysses_attention_sharded(q, k, v, mesh)
+    ref = flash_attention_reference(q.float(), k.float(), v.float())
+    torch.cuda.synchronize()
+    return (flash_attention.launches - before,
+            float((ring.float() - ref).abs().max()),
+            float((uly.float() - ref).abs().max()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sequence_parallel_attention_on_card(gen, dtype):
+    """Ring and Ulysses attention in two gloo ranks on the card: Ulysses
+    launches B2 once a rank, and both agree with the plain fp32 attention
+    (fp32: the order of sums; bf16: inputs rounded to bf16 the same way,
+    outputs within the kernels' bf16 tolerance)."""
+    from open_gpu_kernel_modules_tpu_torch.parallel import mesh as pmesh
+
+    atol = TOL[dtype]["atol"] + (0.0 if dtype == torch.float32 else 2e-2)
+    for launches, ring_err, uly_err in pmesh.run_ranks(
+            _sp_attention_rank, 2, (dtype,), device="cuda", timeout_s=240):
+        assert launches == 1
+        assert ring_err <= atol and uly_err <= atol, (ring_err, uly_err)
+
+
 @pytest.mark.parametrize("impl", ["grid", "rows"])
 def test_flash_tensor_cores_many_ctas(gen, impl):
     """The main shape: 32 heads x 32 q blocks of CTAs run the causal ring

@@ -337,3 +337,46 @@ def test_construction_errors(setup):
     with pytest.raises(ValueError) as terr:
         _sched("torch", setup, disagg=object())
     assert str(terr.value) == str(jerr.value)
+
+
+def _blame_run(side, setup):
+    """The mid-decode scenario with ``blame_tokens``: the slot-pool
+    headroom after every round, and the token blame records."""
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, 256, size=n) for n in (24, 16, 24)]
+    s = _sched(side, setup, blame_tokens=True)
+    try:
+        free = [s.free_device_pages()]
+        reqs = [s.submit(prompts[0], max_new_tokens=16)]
+        for i in range(60):
+            if i == 2:
+                reqs.append(s.submit(prompts[1], max_new_tokens=12))
+            if i == 3:
+                reqs.append(s.submit(prompts[2], max_new_tokens=8))
+            if s.idle:
+                break
+            s.step()
+            free.append(s.free_device_pages())
+        assert _finished(reqs)
+        return free, list(s.token_blame), [r.tokens.copy() for r in reqs]
+    finally:
+        s.close()
+
+
+def test_token_blame_and_free_device_pages_match_jax(setup):
+    """``free_device_pages`` after every round, and one token blame record
+    per stream per round with JAX's (rid, tenant, round), in JAX's order;
+    the times inside a record are the host's, so only their shape is
+    held: a positive ITL inside its stall-inclusive gap, and blame in the
+    ledger's buckets."""
+    jfree, jblame, jtoks = _blame_run("jax", setup)
+    tfree, tblame, ttoks = _blame_run("torch", setup)
+    _assert_tokens(ttoks, jtoks, "port vs JAX")
+    assert tfree == jfree
+    assert [(r["rid"], r["tenant"], r["round"]) for r in tblame] == \
+        [(r["rid"], r["tenant"], r["round"]) for r in jblame]
+    assert len(tblame) == (16 + 12 + 8) // 4
+    for r in tblame:
+        assert 0 < r["itl_ns"] <= r["gap_ns"]
+        assert set(r["blame_ns"]) <= set(utils.FLOW_BUCKETS)
+        assert all(v > 0 for v in r["blame_ns"].values())
