@@ -61,7 +61,10 @@ width (random weights from a seed):
    must finish, committed moves empty their source, tenant charges follow
    the homes, vac's inject site reconciles; tokens decoded before the first
    evacuation must equal M2_0's (all of them when every round's batch
-   matched); B1 must launch once per layer per decode step, no flash kernel;
+   matched); B1 must launch once per layer per decode step, no flash kernel.
+   After M1 the failed link is reset and trained (``ici.reset_link``,
+   ``ici.train_links``): it must report ACTIVE, route 0 -> 1 in one hop,
+   count its training and carry a record to chip 1 directly;
 10. real arena (BASELINE configs #2 and #1): device 0's arena registered as
    REAL, its HBM tier mirrored onto the card by ``runtime.hbm.HbmRuntime``
    (drain thread, copy stream, page-locked shadow) at its defaults.  Two
@@ -72,7 +75,10 @@ width (random weights from a seed):
    page is read on the card and must hold its pattern, the engine must
    have evicted, and the bytes uploaded (less resyncs) must be positive
    and at most what the engine published.  Then
-   an explicit 256 MiB migrate checked on the card; a card computation
+   an explicit 256 MiB migrate checked on the card; one ``MemRing`` batch
+   of 256 MIGRATEs of 64 KiB behind a ring FENCE (bench.py:346's shape),
+   its pages checked on the card and the ring's counts exact; a card
+   computation
    written back through ``write_arena`` that a CPU read (sync) and a
    migration home (left chip-dirty) must carry; suspend/resume, after which
    the card must show the restored bytes; a forced mirror-queue overflow
@@ -81,8 +87,8 @@ width (random weights from a seed):
    three kernels.  Prints one ``{"hbm_real": {...}}`` line: chip-verified
    and engine GB/s, the upload busy share, fault p50/p95/p99 and wake/svc
    p50 µs, evictions, resyncs, CE channel bytes, in-HBM copy GB/s and the
-   north-star ratio, migrate and CXL GB/s, all of the cold pair; and the
-   warm pairs' engine GB/s, REAL against alone;
+   north-star ratio, migrate, ring-migrate and CXL GB/s, all of the cold
+   pair; and the warm pairs' engine GB/s, REAL against alone;
 11. training (runs last: its steps update the parameters in place):
    ``loss_fn``, ``.backward()`` and JAX's SGD update, three times on one
    seeded B=1 x S=1024 batch at 32 layers, bf16; the losses finite, every
@@ -99,7 +105,24 @@ width (random weights from a seed):
    lm_head against one unsharded step computed first; ring and Ulysses
    attention at S=2048, H=32, D=128 equal at fp32 and each within the flash
    limits of the plain fp32 version in bf16.  B2 launches inside the ranks'
-   Ulysses calls count toward its ``launches``.
+   Ulysses calls count toward its ``launches``;
+13. chaos and containment (after phase 10, before phase 11), the JAX
+   package's tests/test_stress.py soak and containment at full width on
+   phase 8's prompts: 4 slots at oversub 4, 32 new tokens, 4 a round, tenant
+   i % 2, streams 5 and 6 cancelled after round 3.  (a) an uninjected
+   reference; (a1) every inject site at 1% (dump.write 12.5%); (a2) the
+   soak: every site at 1% but mem.corrupt at SOAK_CORRUPT_PPM, three forced
+   device resets; (b) scoped one-shot mem.corrupt flips on a parked
+   stream's K page, a fresh scheduler on the same arena (its batches and
+   tokens the reference's), and on phase 9's pool an evacuation 1 -> 2
+   under mem.corrupt every second evaluation (its tokens held to M2_0's).
+   The JAX tests' invariants hold: streams finished or ERROR (poisoned, or
+   unservable once every slot is retired) or cancelled, each poison costing
+   its own stream and slot and never a reset, resets = forced + injected,
+   shield, dump.write, hot.decide, journal, spine and vac reconciliations;
+   tokens equal the reference's in the rounds whose decode batch matched;
+   every arm is taken back, and no site hits afterwards.  Prints hits per
+   site, MTTR p50 and max, blackouts, rounds, tok/s and the scrub pass.
 
 Prints one ``{"kernels": [...]}`` line with each kernel's launches on the
 main path, its error against the plain version, its time, its bound, the
@@ -115,8 +138,10 @@ from __future__ import annotations
 import ctypes
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from pathlib import Path
@@ -875,7 +900,7 @@ def sched_run(cfg, params, prompts, oversub, resets=(), traced_round=0):
 def phase_sched(cfg, params, gen):
     """The Scheduler at full width: runs A (oversub 1), A' (A with three
     forced device resets), B (oversub 2, preempting) and T (A with one
-    round traced, untimed)."""
+    round traced, untimed).  Returns B1's launches and the prompts."""
     from open_gpu_kernel_modules_tpu_torch.ops import (flash_attention,
                                                        paged_attention)
     t = SCHED
@@ -940,7 +965,7 @@ def phase_sched(cfg, params, gen):
     log(f"scheduler: A's median round {a_round:.1f} ms (no profiler); "
         f"device busy share against it "
         f"{'not measured' if kern is None else f'{kern / a_round:.3f}'}")
-    return launches
+    return launches, prompts
 
 
 # ------------------------------------------------------------------ phase 9
@@ -1014,9 +1039,45 @@ def multichip_decode(cfg, params, prompts):
                    prefill_ici=prefill_stats, ici=dict(backing.stats),
                    **activation_record(ms))
         tokens = cache.last_token.copy()
+        rec["retrain"] = retrain_link(backing, direct)
     finally:
         cache.close()
     return tokens, rec
+
+
+def retrain_link(backing, direct):
+    """The failed 0 <-> 1 link reset and trained back: it must report
+    ACTIVE, route 0 -> 1 in one hop, count its training, and carry a record
+    written back to one of chip 1's pages (the same bytes, so the pool's
+    data is unchanged)."""
+    from open_gpu_kernel_modules_tpu_torch import utils
+    from open_gpu_kernel_modules_tpu_torch.runtime import ici
+    from open_gpu_kernel_modules_tpu_torch.uvm import inject
+    trained0 = utils.counter("ici_links_trained")
+    recovery0 = inject.recovery_counters(detail=True)
+    ici.reset_link(0, direct)
+    down = ici.link_info(0, direct).state
+    ici.train_links(0)
+    state = ici.link_info(0, direct).state
+    check(down == ici.LinkState.DOWN and state == ici.LinkState.ACTIVE,
+          f"multichip M1: the 0 <-> 1 link went {down.name} -> "
+          f"{state.name} through reset and training")
+    check(ici.route_hops(0, 1) == 1, "multichip M1: 0 -> 1 still detours "
+          "after training")
+    trained = utils.counter("ici_links_trained") - trained0
+    check(trained >= 1, "multichip M1: no link training was counted")
+    page = next(p for p in range(len(backing.home)) if backing.home[p] == 1)
+    k, v = backing.read_pages([page])
+    before = backing.link_traffic()["0->(1)"]
+    backing.write_page(page, k[:, 0], v[:, 0])
+    sent = backing.link_traffic()["0->(1)"] - before
+    check(sent >= backing.record_bytes, f"multichip M1: a record to chip 1 "
+          f"sent {sent} bytes on the direct link after training")
+    recovery = {n: c - recovery0[n]
+                for n, c in inject.recovery_counters(detail=True).items()
+                if c != recovery0[n]}
+    return {"links_trained": trained, "direct_bytes": sent,
+            "recovery_delta": recovery}
 
 
 def tenant_charges_match(backing) -> bool:
@@ -1109,9 +1170,10 @@ def compare_tokens(name, tokens, batches, before, ref):
 
 def phase_multichip(cfg, params, gen, tiered, smi):
     """Config #5 at full width: M1 (ICI-striped tiered decode through a link
-    failure), M2_0 / M2 (the Scheduler over the pool, without and with
-    evacuations) and M3 (disaggregated, through a reset and an evacuation of
-    a decode home)."""
+    failure, then the link reset and retrained), M2_0 / M2 (the Scheduler
+    over the pool, without and with evacuations) and M3 (disaggregated,
+    through a reset and an evacuation of a decode home).  Returns B1's
+    launches and M2_0's prompts, tokens and decode batches."""
     from open_gpu_kernel_modules_tpu_torch import utils
     from open_gpu_kernel_modules_tpu_torch.ops import (flash_attention,
                                                        paged_attention)
@@ -1154,6 +1216,8 @@ def phase_multichip(cfg, params, gen, tiered, smi):
           f"multichip M1: 0 -> 1 routes over {m1['detour_hops']} hops")
     check(m1["tx_0_to_3_after_failure"] > 0,
           "multichip M1: the 0 -> 3 detour carried no traffic")
+    log(f"multichip M1: the 0 <-> 1 link reset and trained back: "
+        f"{json.dumps(m1['retrain'])}")
     for k in ("unstaged_activate_host_ms_mean",
               "staged_activate_host_ms_mean", "read_pages_ms_mean"):
         log(f"multichip M1 vs ManagedKVBacking at its shape: {k} "
@@ -1281,7 +1345,7 @@ def phase_multichip(cfg, params, gen, tiered, smi):
         f"{len(legs)}, p50 {np.percentile(legs, 50):.3f} ms, p99 "
         f"{np.percentile(legs, 99):.3f} ms; vac.migrate hits {hits}; "
         f"B1 launches {launches}; {smi}")
-    return launches
+    return launches, (prompts, ref_tokens, ref_batches)
 
 
 # ----------------------------------------------------------------- phase 10
@@ -1298,6 +1362,8 @@ OVERSUB = 4
 MIGRATE_BYTES = 256 << 20
 SPAN_BYTES = 64 << 20
 HBM_PAGE = 64 << 10              # uvm_page_size default
+RING_SPANS = 256                 # bench.py:346: 256 MIGRATEs of 64 KiB
+RING_SPAN = 64 << 10
 
 
 def _arena_pages(bufs, page=HBM_PAGE):
@@ -1475,6 +1541,49 @@ def hbm_migrate(rt, vs, rng, nbytes):
             "migrate_engine_dtoh_gbps": nbytes / down / 1e9}
 
 
+def hbm_ring_migrate(rt, vs, rng, spans=RING_SPANS, span_bytes=RING_SPAN):
+    """One MemRing batch of ``spans`` MIGRATEs to HBM (bench.py:346's
+    shape) and a ring FENCE behind them; the engine's time to the fence's
+    completion, then the mirror's fence, then every page checked on the
+    card."""
+    from open_gpu_kernel_modules_tpu_torch import uvm
+    from open_gpu_kernel_modules_tpu_torch.uvm import memring
+    nbytes = spans * span_bytes
+    buf = vs.alloc(nbytes)
+    tile = rng.integers(0, 256, HBM_PAGE, dtype=np.uint8)
+    _fill(buf, tile)
+    m0, r0 = rt.mirrored_bytes, rt.resync_bytes
+    with memring.MemRing(vs, entries=2 * spans) as ring:
+        t0 = time.perf_counter()
+        for i in range(spans):
+            ring.migrate(buf.address + i * span_bytes, span_bytes,
+                         uvm.Tier.HBM)
+        fence = ring.fence()
+        ring.submit_and_wait()
+        up = time.perf_counter() - t0
+        cqes = ring.completions(max_cqes=2 * spans, check=True)
+        rt.fence()
+        up_chip = time.perf_counter() - t0
+        counts = ring.counts
+    check(len(cqes) == spans + 1 and cqes[-1].user_data == fence and
+          sum(c.bytes for c in cqes) == nbytes,
+          f"ring migrate: {len(cqes)} completions, fence last "
+          f"{cqes[-1].user_data == fence}, {sum(c.bytes for c in cqes)} "
+          f"bytes")
+    check((counts.submitted, counts.completed, counts.error_cqes,
+           counts.cq_overflows) == (spans + 1, spans + 1, 0, 0),
+          f"ring migrate: counts {counts}")
+    crossed = (rt.mirrored_bytes - m0) - (rt.resync_bytes - r0)
+    pages = _check_pages(rt, [buf], [tile], "ring migrate")
+    check(pages == nbytes // HBM_PAGE, f"ring migrate: {pages} of "
+          f"{nbytes // HBM_PAGE} pages in HBM")
+    buf.free()
+    return {"ring_migrate_mb": nbytes >> 20, "ring_spans": spans,
+            "ring_migrate_engine_gbps": nbytes / up / 1e9,
+            "ring_migrate_chip_verified_gbps": crossed / up_chip / 1e9,
+            "ring_counts": vars(counts)}
+
+
 def hbm_card_to_host(rt, vs, rng, nbytes):
     """A card computation written into the arena through ``write_arena``:
     with sync=True a CPU read of the managed pages returns the computed
@@ -1610,6 +1719,7 @@ def hbm_paths(rt, vs, rng, migrate_bytes, span_bytes):
     overflow and the CXL DMA write arena offset 0 directly, so they run
     once no managed page of ``vs`` lives in the arena."""
     rec = hbm_migrate(rt, vs, rng, migrate_bytes)
+    rec.update(hbm_ring_migrate(rt, vs, rng))
     rec.update(hbm_card_to_host(rt, vs, rng, span_bytes))
     rec.update(hbm_suspend_resume(rt, vs, rng, span_bytes))
     rec.update(hbm_overflow(rt))
@@ -1673,6 +1783,14 @@ def phase_hbm_real(smi):
             rec["north_star_ratio"] = (rec["chip_verified_gbps"] /
                                        rec["in_hbm_copy_gbps"])
             rec.update(hbm_paths(rt, vs, rng, MIGRATE_BYTES, SPAN_BYTES))
+            log(f"real arena: MemRing migrate of {rec['ring_spans']} x "
+                f"{RING_SPAN >> 10} KiB: engine "
+                f"{rec['ring_migrate_engine_gbps']:.3f} GB/s, chip-verified "
+                f"{rec['ring_migrate_chip_verified_gbps']:.3f}; explicit "
+                f"migrate of {MIGRATE_BYTES >> 20} MiB: engine "
+                f"{rec['migrate_engine_htod_gbps']:.3f}, chip-verified "
+                f"{rec['migrate_chip_verified_gbps']:.3f}; ring counts "
+                f"{rec['ring_counts']}")
             rec.update(mirrored_mb=rt.mirrored_bytes / 1e6,
                        resync_mb_total=rt.resync_bytes / 1e6,
                        drain_batches=rt.drain_batches,
@@ -2005,6 +2123,531 @@ def phase_parallel(smi):
     return launches + b_launches
 
 
+# ----------------------------------------------------------------- phase 13
+
+# Serving under injected faults, and poison containment: the JAX package's
+# tests/test_stress.py::test_sched_soak_injection and
+# ::test_corruption_sched_containment at Llama-3-8B width on phase 8's
+# prompts and pages.  Four slots at oversub 4: the slot pool holds 10 pages
+# of 64 tokens, a stream needs 9 (504 + 32), so streams decode one at a time
+# and the resets' parks and restores move 72 MiB each.  32 new tokens, not
+# phase 8's 64: at one stream a round, each run is 8 streams x 8 rounds, and
+# the phase runs four of them beside the evacuation.
+CHAOS = dict(max_seqs=4, oversub=4, new=32, tokens_per_round=4,
+             cancel_after=3, cancel=(5, 6), resets=3)
+# Every site at 1% (the JAX engine soak's rate for large workloads: here
+# evaluations scale with the bytes), dump.write at 12.5% (the JAX soak's).
+CHAOS_PPM = 10000
+DUMP_PPM = 125000
+CHAOS_SEED = 42
+# mem.corrupt is evaluated once per sealed 4 KiB page: at this width at 1%
+# every admission poisons the KV it just parked, in its own slot (run (a1);
+# 47 flips in 5088 evaluations on the H100, PERF.md section 6).  The soak
+# (a2) keeps the JAX soak's expected flips a run instead: its 37
+# evaluations at 50000 PPM (tests/test_torch_stress.py) make 1.85, and the
+# soak here makes about 25400 evaluations, so 73 PPM.
+SOAK_CORRUPT_PPM = 73
+# Containment: at most three scoped one-shot flips, each re-armed only when
+# the previous ones have resolved and no stream has errored; the seal scope
+# is the 4 KiB page's address (the shield seals engine pages of 4 KiB).
+CONTAIN_SHOTS = 3
+CONTAIN_SEED = 5
+SEAL_PAGE = 4096
+
+
+def chaos_scheduler(cfg, params, prompts):
+    """A Scheduler at phase 13's shape with every prompt submitted (stream
+    i of tenant i % 2)."""
+    from open_gpu_kernel_modules_tpu_torch.runtime import sched
+    c = CHAOS
+    s = sched.Scheduler(cfg, params, max_seqs=c["max_seqs"],
+                        max_len=SCHED["max_len"], page_size=SCHED["page"],
+                        oversub=c["oversub"],
+                        tokens_per_round=c["tokens_per_round"])
+    reqs = [s.submit(p, c["new"], tenant=i % 2)
+            for i, p in enumerate(prompts)]
+    return s, reqs
+
+
+def chaos_finish(s, reqs, before=None, resets=0):
+    """The JAX soak's choreography: step; after round ``cancel_after``
+    cancel the streams of ``cancel``; force a device reset after each of the
+    next ``resets`` rounds; step until idle.  ``before()`` runs ahead of
+    every round.  Returns the run's record: tokens and state by rid, the
+    decode batch of every round that decoded, each stream's decoded count
+    after it, the report, and the MTTR of each forced reset."""
+    from open_gpu_kernel_modules_tpu_torch.runtime import sched
+    from open_gpu_kernel_modules_tpu_torch.uvm import reset
+    c = CHAOS
+    batches, progress, mttr = [], [], []
+    rounds = 0
+    t0 = time.perf_counter()
+    while not s.idle and rounds < 5000:
+        if before:
+            before()
+        d0 = s.stats["decoded_tokens"]
+        s.step()
+        rounds += 1
+        n = (s.stats["decoded_tokens"] - d0) // s.tokens_per_round
+        if n:
+            batches.append(n)
+            progress.append({r.rid: r.decoded for r in reqs})
+        if rounds == c["cancel_after"]:
+            for r in reqs:
+                if r.rid in c["cancel"]:
+                    s.cancel(r.rid)
+        elif rounds > c["cancel_after"] and len(mttr) < resets and \
+                not s.idle:
+            reset.device_reset()
+            mttr.append(reset.stats().last_mttr_ms)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    done = sched.RequestState.FINISHED
+    return dict(
+        tokens={r.rid: np.asarray(r.tokens) for r in reqs
+                if r.state is done},
+        states={r.rid: r.state.value for r in reqs},
+        batches=batches, progress=progress, rounds=rounds, wall=wall,
+        rep=s.report(wall), mttr_ms=mttr)
+
+
+def chaos_compare(name, run, ref):
+    """``run``'s tokens against ``ref``'s (PERF.md section 2): equal for
+    every stream both finished when every round's decode batch matched;
+    otherwise equal in the rounds before the first that differs (bf16 cuBLAS
+    and B1's split plan round alike within a batch bucket, apart across
+    buckets); the agreement is printed either way."""
+    b, rb = run["batches"], ref["batches"]
+    first = next((i for i, (x, y) in enumerate(zip(b, rb)) if x != y),
+                 None if len(b) == len(rb) else min(len(b), len(rb)))
+    both = sorted(set(run["tokens"]) & set(ref["tokens"]))
+    if first is None:
+        for rid in both:
+            check(np.array_equal(run["tokens"][rid], ref["tokens"][rid]),
+                  f"{name}: every round's batch matched the reference's "
+                  f"but stream {rid}'s tokens differ")
+    elif first > 0:
+        for rid, n in run["progress"][first - 1].items():
+            n = min(n, ref["progress"][first - 1].get(rid, 0))
+            if rid in both and n:
+                check(np.array_equal(run["tokens"][rid][:n],
+                                     ref["tokens"][rid][:n]),
+                      f"{name}: stream {rid}'s first {n} tokens, decoded "
+                      f"before round {first + 1}, differ from the "
+                      f"reference's")
+    same = [bool(np.array_equal(run["tokens"][r], ref["tokens"][r]))
+            for r in both]
+    log(f"chaos {name}: decode batches {b} (reference {rb}); first round "
+        f"that differs {None if first is None else first + 1}; "
+        f"{sum(same)} of {len(both)} streams finished in both equal the "
+        f"reference's")
+
+
+def containment_stats(rep) -> str:
+    """The Scheduler's preemption, round-error and containment counts."""
+    return ", ".join(f"{k} {rep.get(k, 0)}" for k in (
+        "preempted", "restored", "round_errors", "poisoned",
+        "free_slots_retired", "unservable"))
+
+
+def chaos_counters():
+    from open_gpu_kernel_modules_tpu_torch import utils
+    names = ("journal_dump_errors", "journal_dumps", "hot_inject_skips",
+             "tpusched_poisoned_retired", "tpusched_seq_slots_retired",
+             "shield_retired_realloc", "vac_crc_verifies",
+             "vac_crc_mismatches", "vac_crc_reships", "vac_aborts")
+    return {n: utils.counter(n) for n in names}
+
+
+def spine_counts():
+    """The memring spine's SQE counters, per subsystem and per shard; the
+    shard count is the registry's, defaulting as the engine does to the
+    online CPUs, at most 8."""
+    from open_gpu_kernel_modules_tpu_torch import utils
+    shards = utils.registry_get("memring_internal_shards",
+                                min(os.cpu_count() or 1, 8))
+    c = utils.counter
+    return {"shards": shards,
+            "internal_sqes": c("memring_internal_sqes"),
+            "by_subsystem": [c(f"memring_internal_sqes[{k}]")
+                             for k in ("fault", "tier", "ici", "migrate")],
+            "inline": c("memring_internal_inline"),
+            "shard": c("memring_shard_sqes"),
+            "per_shard": [c(f"memring_shard_sqes[s{i}]")
+                          for i in range(shards)]}
+
+
+def chaos_soak(cfg, params, prompts, name, corrupt_ppm):
+    """(a): every site armed at CHAOS_PPM, mem.corrupt at ``corrupt_ppm``,
+    dump.write at DUMP_PPM, the forced resets, the cancels; then a crash
+    dump with the sites still armed.  Every arm is taken back in
+    ``finally``.  Returns the run's record with its deltas."""
+    from open_gpu_kernel_modules_tpu_torch.uvm import (inject, journal,
+                                                       reset, shield)
+    c = CHAOS
+    r0, sh0, ctr0 = reset.stats(), shield.stats(), chaos_counters()
+    hits0 = inject.stats()
+    inject.set_seed(CHAOS_SEED)
+    try:
+        for site in inject.Site:
+            inject.enable(site, inject.Mode.PPM, CHAOS_PPM)
+        inject.enable(inject.Site.MEM_CORRUPT, inject.Mode.PPM, corrupt_ppm)
+        inject.enable(inject.Site.DUMP_WRITE, inject.Mode.PPM, DUMP_PPM)
+        s, reqs = chaos_scheduler(cfg, params, prompts)
+        try:
+            run = chaos_finish(s, reqs, resets=c["resets"])
+        finally:
+            s.close()
+        # With the sites still armed: dump.write's invariant is never
+        # vacuous.
+        journal.crash_dump("chip_smoke.chaos")
+    finally:
+        inject.disable_all()
+    r1, sh1, ctr1 = reset.stats(), shield.stats(), chaos_counters()
+    run["hits"] = {k: v[1] - hits0[k][1] for k, v in inject.stats().items()}
+    run["evals"] = {k: v[0] - hits0[k][0] for k, v in inject.stats().items()}
+    run["resets"] = r1.resets - r0.resets
+    run["injected_resets"] = r1.injected_resets - r0.injected_resets
+    run["shield"] = {k: getattr(sh1, k) - getattr(sh0, k)
+                     for k in vars(sh1)}
+    run["ctr"] = {k: ctr1[k] - ctr0[k] for k in ctr0}
+    run["journal"] = journal.stats()
+    run["name"] = name
+    log(f"chaos {name}: mem.corrupt at {corrupt_ppm} PPM; rounds "
+        f"{run['rounds']}, wall {run['wall']:.2f} s, agg_toks_per_s "
+        f"{run['rep']['agg_toks_per_s']}, states {run['states']}, resets "
+        f"{run['resets']} (forced {len(run['mttr_ms'])}, injected "
+        f"{run['injected_resets']}), " + containment_stats(run['rep']))
+    log(f"chaos {name} hits per site: {json.dumps(run['hits'])}")
+    log(f"chaos {name} evaluations per site: {json.dumps(run['evals'])}")
+    log(f"chaos {name} shield: {json.dumps(run['shield'])}; counters "
+        f"{json.dumps(run['ctr'])}; recovery "
+        f"{json.dumps(inject.recovery_counters())}")
+    return run
+
+
+def check_soak(run, ref, streams, forced, exact=True):
+    """test_sched_soak_injection's invariants, on deltas over the run;
+    ``forced`` forced resets must have run.  A stream is ERROR when a
+    poison retired it, or when every slot was retired before it was served
+    (``unservable``).  ``exact=False``: a flip sealed in a 2 MiB block that
+    another flip already poisoned is never verified, so mem.corrupt's
+    corrupts may exceed detected + misses (the engine's gap, ROADMAP.md
+    section C); the unverified flips are printed."""
+    c, name = CHAOS, run["name"]
+    rep, sh, ctr = run["rep"], run["shield"], run["ctr"]
+    err = sorted(r for r, st in run["states"].items() if st == "error")
+    err_noncancel = [r for r in err if r not in c["cancel"]]
+    check(sorted(list(run["tokens"]) + err_noncancel) ==
+          sorted(ref["tokens"]),
+          f"chaos {name}: finished {sorted(run['tokens'])} + ERROR "
+          f"{err_noncancel} != the reference's {sorted(ref['tokens'])}")
+    po, un = rep.get("poisoned", 0), rep.get("unservable", 0)
+    check(set(run["states"].values()) <= {"finished", "cancelled", "error"},
+          f"chaos {name}: states {run['states']}")
+    check(len(err) == po + un, f"chaos {name}: {len(err)} ERROR streams, "
+          f"{po} poisoned, {un} unservable")
+    check(rep["retired"] + rep["cancelled"] + po + un == streams,
+          f"chaos {name}: retired {rep['retired']} + cancelled "
+          f"{rep['cancelled']} + poisoned {po} + unservable {un} != "
+          f"{streams}")
+    check(rep["finished"] == rep["retired"] ==
+          streams - rep["cancelled"] - len(err),
+          f"chaos {name}: finished {rep['finished']}, retired "
+          f"{rep['retired']}")
+    check(rep["restored"] <= rep["preempted"],
+          f"chaos {name}: restored {rep['restored']} > preempted "
+          f"{rep['preempted']}")
+    check(len(run["mttr_ms"]) >= forced and
+          rep["device_resets_observed"] >= len(run["mttr_ms"]) and
+          all(m > 0 for m in run["mttr_ms"]),
+          f"chaos {name}: forced {len(run['mttr_ms'])} resets (at least "
+          f"{forced}), observed {rep['device_resets_observed']}, MTTR "
+          f"{run['mttr_ms']}")
+    check(run["resets"] == len(run["mttr_ms"]) + run["injected_resets"],
+          f"chaos {name}: {run['resets']} resets != forced "
+          f"{len(run['mttr_ms'])} + injected {run['injected_resets']}")
+    hits = run["hits"]
+    unverified = sh["inject_corrupts"] - sh["inject_detected"] - \
+        sh["inject_misses"]
+    check(hits["mem.corrupt"] == sh["inject_corrupts"] and
+          sh["inject_misses"] == 0 and
+          (unverified == 0 if exact else unverified >= 0),
+          f"chaos {name}: mem.corrupt hits {hits['mem.corrupt']}, shield "
+          f"{sh}")
+    if unverified:
+        log(f"chaos {name}: {unverified} of {sh['inject_corrupts']} flips "
+            f"never verified (sealed in a block already poisoned)")
+    check(ctr["shield_retired_realloc"] == 0,
+          f"chaos {name}: a retired span was handed out again")
+    check(ctr["tpusched_poisoned_retired"] ==
+          ctr["tpusched_seq_slots_retired"] == po,
+          f"chaos {name}: poisoned_retired "
+          f"{ctr['tpusched_poisoned_retired']}, slots_retired "
+          f"{ctr['tpusched_seq_slots_retired']}, poisoned {po}")
+    if po or rep.get("free_slots_retired", 0):
+        check(sh["pages_poisoned"] > 0 and sh["pages_retired"] > 0,
+              f"chaos {name}: {po} poisoned streams, "
+              f"{rep.get('free_slots_retired', 0)} slots retired, shield "
+              f"{sh}")
+    check(run["evals"]["sched.admit"] > 0, f"chaos {name}: admission gate "
+          f"never evaluated")
+    check(sum(1 for h in hits.values() if h > 0) >= 2,
+          f"chaos {name}: fewer than two sites fired: {hits}")
+    check(run["evals"]["vac.migrate"] == 0 and hits["vac.migrate"] == 0,
+          f"chaos {name}: the single-chip backing ran a chip migration")
+    check(hits["hot.decide"] == ctr["hot_inject_skips"],
+          f"chaos {name}: hot.decide hits {hits['hot.decide']} != skips "
+          f"{ctr['hot_inject_skips']}")
+    check(run["evals"]["dump.write"] > 0 and ctr["journal_dumps"] >= 1 and
+          hits["dump.write"] == ctr["journal_dump_errors"],
+          f"chaos {name}: dump.write hits {hits['dump.write']}, evaluations "
+          f"{run['evals']['dump.write']}, counters {ctr}")
+    emitted, dropped, cap = run["journal"]
+    check(cap == 16384 and dropped == 0 and emitted > 0,
+          f"chaos {name}: journal emitted {emitted}, dropped {dropped}, cap "
+          f"{cap}")
+
+
+def contain_run(cfg, params, prompts):
+    """(b): exclusive parks (read duplication off), then before each round a
+    running stream is parked (its backing becomes the only copy), a scoped
+    one-shot mem.corrupt is armed on its first K page and a pressure park
+    seals the pool and fires it; its restore must read the flip back."""
+    from open_gpu_kernel_modules_tpu_torch.runtime import sched
+    from open_gpu_kernel_modules_tpu_torch.uvm import inject, shield
+    from open_gpu_kernel_modules_tpu_torch.uvm.managed import Tier
+    def unresolved():
+        st = shield.stats()
+        return st.inject_corrupts - st.inject_detected - st.inject_misses
+
+    s, reqs = chaos_scheduler(cfg, params, prompts)
+    backing = s.cache.backing
+    shots = [0]
+    # Flips an earlier run left unverified (ROADMAP.md section C) stay so:
+    # a shot is re-armed once its predecessors resolved, against them.
+    unresolved0 = unresolved()
+
+    def errored():
+        return [r.rid for r in reqs if r.state is sched.RequestState.ERROR]
+
+    def hook():
+        if errored() or shots[0] >= CONTAIN_SHOTS or \
+                unresolved() != unresolved0:
+            return
+        targets = [r for r in s._running.values()
+                   if r.seq is not None and int(s.cache.seq_lens[r.seq]) > 0]
+        if not targets:
+            return
+        t = targets[0]
+        off = (t.seq * s.cache.pages_per_seq * backing.rec_bytes) & \
+            ~(SEAL_PAGE - 1)
+        s._preempt(t)
+        inject.arm_oneshot(inject.Site.MEM_CORRUPT,
+                           scope=backing.k_buf.address + off)
+        backing.k_buf.migrate(Tier.CXL)
+        shots[0] += 1
+
+    inject.set_seed(CONTAIN_SEED)
+    try:
+        for buf in (backing.k_buf, backing.v_buf):
+            buf.set_read_duplication(False)
+            buf.migrate(Tier.CXL)
+        run = chaos_finish(s, reqs, before=hook)
+    finally:
+        inject.disable_all()
+        s.close()
+    run["shots"] = shots[0]
+    run["errored"] = errored()
+    return run
+
+
+def contain_evacuation(cfg, params, mc):
+    """(b) on phase 9's pool: M2_0's prompts and shape, with chip 1's
+    records moved to chip 2 after round 3 under mem.corrupt every second
+    evaluation; the per-record wire CRC must catch every flip and re-ship."""
+    from open_gpu_kernel_modules_tpu_torch.uvm import inject
+    prompts, ref_tokens, ref_batches = mc
+    moved = []
+
+    def corrupt_evacuation(s):
+        inject.enable(inject.Site.MEM_CORRUPT, inject.Mode.NTH, 2)
+        try:
+            moved.append(s.evacuate_device(1, 2))
+        finally:
+            inject.disable(inject.Site.MEM_CORRUPT)
+        check(moved[-1] is not None and moved[-1].pages > 0,
+              "chaos (b): the evacuation 1 -> 2 under mem.corrupt aborted")
+    tokens, rep, batches, before, moves, (blackouts, _) = \
+        multichip_sched_run(cfg, params, prompts,
+                            after={3: corrupt_evacuation})
+    compare_tokens("C_evac", tokens, batches, before,
+                   (ref_tokens, ref_batches))
+    return rep, moves, blackouts
+
+
+def phase_chaos(cfg, params, prompts, mc, smi):
+    """Serving under injected faults, and poison containment, at full width
+    (the JAX package's chaos soak and containment tests): (a) a reference
+    run and a chaos run of the soak's choreography; (b) scoped one-shot
+    flips poisoning a parked stream's K page, a fresh scheduler on the
+    quarantined arena, and an evacuation on phase 9's pool under
+    mem.corrupt.  Returns B1's launches."""
+    from open_gpu_kernel_modules_tpu_torch.ops import (flash_attention,
+                                                       paged_attention)
+    from open_gpu_kernel_modules_tpu_torch.uvm import (inject, reset,
+                                                       shield, vac)
+    c = CHAOS
+    streams = len(prompts)
+    t_phase = time.perf_counter()
+    log(f"chaos: {CHAOS}, prompts {prompts.shape}, pages of "
+        f"{SCHED['page']}, max_len {SCHED['max_len']}; every site at "
+        f"{CHAOS_PPM} PPM, dump.write at {DUMP_PPM} PPM, seed {CHAOS_SEED}")
+    # Earlier phases' resets, link failures and evacuations left health
+    # evidence; the watchdog must not escalate on it here.
+    for d in range(ARENAS):
+        vac.clear(d)
+    reset.watchdog_start()
+    torch.cuda.synchronize()
+    reset_counts()
+    launches_floor = 0
+
+    # (a) The soak: its uninjected reference, then the chaos run.
+    s, reqs = chaos_scheduler(cfg, params, prompts)
+    try:
+        ref = chaos_finish(s, reqs)
+    finally:
+        s.close()
+    check(sorted(ref["tokens"]) == [r for r in range(1, streams + 1)
+                                    if r not in c["cancel"]],
+          f"chaos reference: states {ref['states']}")
+    log(f"chaos reference: rounds {ref['rounds']}, wall {ref['wall']:.2f} "
+        f"s, agg_toks_per_s {ref['rep']['agg_toks_per_s']}, batches "
+        f"{ref['batches']}")
+    # (a1) every site at 1%, mem.corrupt too; (a2) the soak, mem.corrupt
+    # at SOAK_CORRUPT_PPM.
+    every = chaos_soak(cfg, params, prompts, "(a1) all at 1%", CHAOS_PPM)
+    check_soak(every, ref, streams, forced=0, exact=False)
+    chaos_compare("(a1) all at 1%", every, ref)
+    soak = chaos_soak(cfg, params, prompts, "(a2) soak", SOAK_CORRUPT_PPM)
+    check_soak(soak, ref, streams, forced=c["resets"])
+    chaos_compare("(a2) soak", soak, ref)
+    launches_floor += len(ref["batches"]) + len(every["batches"]) + \
+        len(soak["batches"])
+
+    # (b) Containment on the managed arena, then a fresh scheduler on it.
+    r0, ctr0 = reset.stats().resets, chaos_counters()
+    hits0 = inject.counts(inject.Site.MEM_CORRUPT)[1]
+    sh0 = shield.stats()
+    contain = contain_run(cfg, params, prompts)
+    ctr = {k: v - ctr0[k] for k, v in chaos_counters().items()}
+    rep = contain["rep"]
+    nerr = len(contain["errored"])
+    log(f"chaos (b) containment: shots {contain['shots']}, ERROR streams "
+        f"{contain['errored']}, rounds {contain['rounds']}, wall "
+        f"{contain['wall']:.2f} s, states {contain['states']}, " +
+        containment_stats(rep))
+    check(1 <= nerr < streams, f"chaos (b): {nerr} ERROR streams")
+    check(set(contain["states"].values()) <= {"finished", "cancelled",
+                                              "error"},
+          f"chaos (b): states {contain['states']}")
+    err_noncancel = [r for r in contain["errored"] if r not in c["cancel"]]
+    check(sorted(list(contain["tokens"]) + err_noncancel) ==
+          sorted(ref["tokens"]),
+          "chaos (b): finished + poisoned != the reference's finished")
+    check(reset.stats().resets == r0, "chaos (b): a poison reset the device")
+    check(ctr["tpusched_poisoned_retired"] ==
+          ctr["tpusched_seq_slots_retired"] == rep.get("poisoned", 0) ==
+          nerr,
+          f"chaos (b): poisoned_retired {ctr['tpusched_poisoned_retired']}, "
+          f"slots_retired {ctr['tpusched_seq_slots_retired']}, poisoned "
+          f"{rep.get('poisoned')}, ERROR {nerr}")
+    check(rep["retired"] + rep["cancelled"] + nerr == streams,
+          f"chaos (b): retired {rep['retired']} + cancelled "
+          f"{rep['cancelled']} + poisoned {nerr} != {streams}")
+    chaos_compare("(b) containment", contain, ref)
+    disarmed = {k: v[1] for k, v in inject.stats().items()}
+    s, reqs = chaos_scheduler(cfg, params, prompts)
+    try:
+        clean = chaos_finish(s, reqs)
+    finally:
+        s.close()
+    check({k: v[1] for k, v in inject.stats().items()} == disarmed,
+          "chaos (b): a site hit after every arm was taken back")
+    check(clean["batches"] == ref["batches"] and
+          sorted(clean["tokens"]) == sorted(ref["tokens"]) and
+          all(np.array_equal(clean["tokens"][r], ref["tokens"][r])
+              for r in ref["tokens"]),
+          "chaos (b): the fresh scheduler on the quarantined arena did not "
+          "decode the reference's tokens")
+    check(chaos_counters()["shield_retired_realloc"] ==
+          ctr0["shield_retired_realloc"],
+          "chaos (b): a retired span was handed out again")
+    launches_floor += len(contain["batches"]) + len(clean["batches"])
+    launches = paged_attention.launches
+    expect = cfg.num_layers * c["tokens_per_round"] * launches_floor
+    check(launches >= expect, f"chaos: paged decode launched {launches} "
+          f"times, fewer than one per layer per decode step ({expect})")
+    check(flash_attention.launches == 0 and flash_attention.rows_launches == 0,
+          "chaos launched a flash kernel")
+
+    # (b) on phase 9's pool: the vac window's wire CRC under mem.corrupt.
+    # Its decode rounds are the multichip path's (B1 launches counted with
+    # the phase's, not required per round).
+    v0 = chaos_counters()
+    evac_rep, moves, blackouts = contain_evacuation(cfg, params, mc)
+    vc = {k: v - v0[k] for k, v in chaos_counters().items()}
+    log(f"chaos (b) evacuation: moves {moves}, blackouts ms "
+        f"{[round(b * 1e3, 3) for b in blackouts]}, vac "
+        f"{ {k: vc[k] for k in vc if k.startswith('vac_')} }, "
+        f"agg_toks_per_s {evac_rep['agg_toks_per_s']}")
+    check(vc["vac_crc_mismatches"] > 0 and
+          vc["vac_crc_reships"] == vc["vac_crc_mismatches"] and
+          vc["vac_aborts"] == 0,
+          f"chaos (b) evacuation: vac counters {vc}")
+    check(vac.txns_active() == 0, "chaos: a vac manifest is still open")
+    launches = paged_attention.launches
+
+    # Exact over (b): every flip detected, none missed.
+    sh = shield.stats()
+    hits = inject.counts(inject.Site.MEM_CORRUPT)[1] - hits0
+    corrupts = sh.inject_corrupts - sh0.inject_corrupts
+    detected = sh.inject_detected - sh0.inject_detected
+    misses = sh.inject_misses - sh0.inject_misses
+    check(hits == corrupts == detected + misses and misses == 0,
+          f"chaos (b): mem.corrupt hits {hits}, corrupts {corrupts}, "
+          f"detected {detected}, misses {misses}")
+    check(sh.pages_poisoned - sh0.pages_poisoned >= nerr,
+          "chaos (b): fewer pages poisoned than streams errored")
+    sp = spine_counts()
+    check(sp["internal_sqes"] > 0 and
+          sp["internal_sqes"] == sum(sp["by_subsystem"]) and
+          sp["by_subsystem"][0] > 0 and
+          sp["internal_sqes"] == sp["shard"] + sp["inline"] and
+          sum(sp["per_shard"]) == sp["shard"],
+          f"chaos: spine accounting {sp}")
+    hits_after = {k: v[1] for k, v in inject.stats().items()}
+    scrubbed = shield.scrub_now()
+    mttr = np.array(soak["mttr_ms"])
+    check({k: v[1] for k, v in inject.stats().items()} == hits_after,
+          "chaos: a site hit after every arm was taken back")
+    log(f"chaos: spine {json.dumps(sp)}; retired pages "
+        f"{shield.retired_pages()}; scrub pass {scrubbed} pages; forced "
+        f"reset MTTR p50 {np.percentile(mttr, 50):.3f} ms, max "
+        f"{mttr.max():.3f} ms; recovery "
+        f"{json.dumps(inject.recovery_counters(detail=True))}")
+    log(f"chaos: agg_toks_per_s reference {ref['rep']['agg_toks_per_s']}, "
+        f"all at 1% {every['rep']['agg_toks_per_s']}, soak "
+        f"{soak['rep']['agg_toks_per_s']}, containment "
+        f"{contain['rep']['agg_toks_per_s']}, clean "
+        f"{clean['rep']['agg_toks_per_s']}; rounds {ref['rounds']}, "
+        f"{every['rounds']}, {soak['rounds']}, {contain['rounds']}, "
+        f"{clean['rounds']}; B1 "
+        f"launches {launches}; phase {time.perf_counter() - t_phase:.1f} s; "
+        f"{smi}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2012,6 +2655,17 @@ def main() -> int:
     # Read by the native engine when it loads (it has not yet).
     os.environ["TPUMEM_FAKE_HBM_MB"] = str(ARENA_MB)
     os.environ["TPUMEM_FAKE_TPU_COUNT"] = str(ARENAS)
+    # Crash bundles (phase 13's dump.write site, vac aborts) go to a
+    # directory of the run's own.
+    dumps = tempfile.mkdtemp(prefix="chip_smoke_dumps.")
+    os.environ["TPUMEM_DUMP_DIR"] = dumps
+    try:
+        return run()
+    finally:
+        shutil.rmtree(dumps, ignore_errors=True)
+
+
+def run() -> int:
     from open_gpu_kernel_modules_tpu_torch.models import llama
 
     smi = phase_build()
@@ -2037,9 +2691,14 @@ def main() -> int:
     b2_launches += phase_flash_forward(cfg, params, gen)
     tiered_launches, *tiered = phase_tiered(cfg, params, gen)
     b1_launches += tiered_launches
-    b1_launches += phase_sched(cfg, params, gen)
-    b1_launches += phase_multichip(cfg, params, gen, tiered, smi)
+    launches, sched_prompts = phase_sched(cfg, params, gen)
+    b1_launches += launches
+    launches, m2_0 = phase_multichip(cfg, params, gen, tiered, smi)
+    b1_launches += launches
     phase_hbm_real(smi)
+    # After the real arena, whose size its quarantined pages would cut, and
+    # before training, which replaces the parameters.
+    b1_launches += phase_chaos(cfg, params, sched_prompts, m2_0, smi)
     # Last: its SGD steps replace the parameters.
     phase_train(cfg, params, gen, smi)
 

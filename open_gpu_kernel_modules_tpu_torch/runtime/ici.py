@@ -1,12 +1,11 @@
 """ICI topology, link management and peer apertures (native/src/ici.c).
 
-The port's copy of the part of the JAX package's ``runtime/ici.py`` that the
-multichip KV pool and its tests use: each device's links (peer, state, byte
-counters), a forced link failure, the routed hop count between two devices
-(dimension-ordered torus routing that detours around FAILED links), and
-``PeerAperture``, a peer-mapped window through which one ICI copy moves bytes
-between two devices' HBM arenas.  Topology state is process-wide in the
-native library.
+The port's copy of the JAX package's ``runtime/ici.py``: each device's links
+(peer, state, byte counters), link training, a forced link failure and a
+link reset, the routed hop count between two devices (dimension-ordered
+torus routing that detours around FAILED links), and ``PeerAperture``, a
+peer-mapped window through which one ICI copy moves bytes between two
+devices' HBM arenas. Topology state is process-wide in the native library.
 """
 
 from __future__ import annotations
@@ -60,6 +59,10 @@ def _lib() -> ctypes.CDLL:
     lib.tpuIciLinkInfo.restype = u32
     lib.tpuIciInjectLinkFailure.argtypes = [u32, u32]
     lib.tpuIciInjectLinkFailure.restype = u32
+    lib.tpuIciTrainLinks.argtypes = [u32]
+    lib.tpuIciTrainLinks.restype = u32
+    lib.tpuIciResetLink.argtypes = [u32, u32]
+    lib.tpuIciResetLink.restype = u32
     lib.tpuIciRouteHops.argtypes = [u32, u32, ctypes.POINTER(u32)]
     lib.tpuIciRouteHops.restype = u32
     lib.tpuIciPeerApertureCreate.argtypes = [u32, u32,
@@ -91,9 +94,19 @@ def link_info(dev: int, link: int) -> LinkInfo:
                     raw.bytesRx, raw.errorCount)
 
 
+def train_links(dev: int) -> None:
+    """Train every link of ``dev`` that is not ACTIVE."""
+    _check(_lib().tpuIciTrainLinks(dev), "tpuIciTrainLinks")
+
+
 def inject_link_failure(dev: int, link: int) -> None:
     _check(_lib().tpuIciInjectLinkFailure(dev, link),
            "tpuIciInjectLinkFailure")
+
+
+def reset_link(dev: int, link: int) -> None:
+    """Take a link down for retraining (a FAILED link comes back DOWN)."""
+    _check(_lib().tpuIciResetLink(dev, link), "tpuIciResetLink")
 
 
 def route_hops(src: int, dst: int) -> int:
@@ -128,3 +141,9 @@ class PeerAperture:
         if self._handle:
             self._lib.tpuIciPeerApertureDestroy(self._handle)
             self._handle = None
+
+    def __enter__(self) -> "PeerAperture":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()

@@ -731,9 +731,21 @@ class Scheduler:
         except native.RmError:
             # Transient backing fault past the engine's bounded retries:
             # the activation rolled itself back — requeue at the head and
-            # let a later round retry.
-            self.cache.release_sequence(seq)
-            self._free_seqs.append(seq)
+            # let a later round retry.  A slot whose own backing span holds
+            # a poisoned page (a flip in the KV this prefill just parked)
+            # would fail every later admission: it is retired, as a
+            # poisoned stream's slot is, and the stream, whose prompt is
+            # intact, waits for another.
+            poisoned = self._seq_poisoned(req)
+            try:
+                self.cache.release_sequence(seq)
+            except native.RmError:
+                if not poisoned:
+                    raise
+            if poisoned:
+                self._retire_free_slot(seq)
+            else:
+                self._free_seqs.append(seq)
             req.seq = None
             self.stats["round_errors"] += 1
             _counter_add("tpusched_round_errors")
@@ -847,6 +859,29 @@ class Scheduler:
                       status=_shield.PAGE_POISONED,
                       a0=seq if seq is not None else 0, flow=flow0)
         _counter_add("tpusched_seq_slots_retired")
+
+    def _retire_free_slot(self, seq: int) -> None:
+        """Retire a sequence slot whose backing span is poisoned before any
+        stream holds it: never freed again."""
+        self.stats["free_slots_retired"] = \
+            self.stats.get("free_slots_retired", 0) + 1
+        _journal.emit(_journal.RecType.SCHED_RETIRE,
+                      status=_shield.PAGE_POISONED, a0=seq)
+
+    def _fail_unservable(self) -> None:
+        """Every sequence slot is retired on a poisoned page: nothing can
+        serve the queue any more, so its streams end terminal-with-error
+        instead of waiting forever."""
+        if not self._queue or self._free_seqs or self._running or \
+                self._preempted:
+            return
+        for req in self._queue:
+            req.state = RequestState.ERROR
+            if req.flow:
+                _utils.flow_close(req.flow)
+                req.flow = None
+            self.stats["unservable"] = self.stats.get("unservable", 0) + 1
+        self._queue.clear()
 
     def _handle_poisoned_round(self) -> bool:
         """A round failed with PAGE_POISONED: retire exactly the owning
@@ -977,6 +1012,7 @@ class Scheduler:
             self._check_generation()
             self._check_evacuation()
             self._try_admissions()
+            self._fail_unservable()
             # Evicts staged by preempts fuse into the next restore's
             # submission; once no restore can consume them, publish them
             # on their own (tier ring only).

@@ -1,12 +1,12 @@
 """tpumemring — io_uring-style async memory-op rings (native/src/memring.c).
 
-The port's own copy of the part of the JAX package's ``uvm/memring.py``
-that the tiered KV backing, the scheduler and the vac migration engine use: a
-``MemRing`` bound to a VA space (or to none, for ICI peer copies only) that
-stages device-access PREFETCH, tier-demote EVICT and ICI PEER_COPY ops,
-publishes them with one doorbell, waits for the batch and reaps per-op
-completions.  The native worker pool coalesces contiguous spans into
-block-granular engine calls.  Errors come back per op;
+The port's own copy of the JAX package's ``uvm/memring.py``: a ``MemRing``
+bound to a VA space (or to none, for NOP, FENCE and ICI peer copies only)
+that stages MIGRATE, device-access PREFETCH, tier-demote EVICT, ADVISE
+(policy), PEER_COPY, FENCE and NOP ops, publishes them with one doorbell,
+waits for the batch and reaps per-op completions carrying the ``user_data``
+cookie, status and bytes moved. The native worker pool coalesces contiguous
+spans into block-granular engine calls. Errors come back per op;
 ``completions(check=True)`` raises :class:`native.RmError` on the first
 error completion.
 
@@ -15,7 +15,10 @@ right after its prep), and a later op may carry up to 4 ``deps=[...]``
 handles built with :func:`dep`.  ``dep(ring, seq, ordered=True)`` waits
 for the ring's retirement frontier to pass ``seq`` (every op up to it
 retired): the scheduler's restore prefetches wait so on the victims'
-demotes.
+demotes.  :func:`dep_batch` names an earlier op of the batch being staged.
+``link=True`` chains an op to the next (a failure cancels the rest of the
+chain with error completions), and ``fence()`` completes only after every
+op submitted before it has posted its completion.
 """
 
 from __future__ import annotations
@@ -41,10 +44,25 @@ class Op(enum.IntEnum):
     FENCE = 6
 
 
+class Advise(enum.IntEnum):
+    """ADVISE subcodes."""
+
+    PREFERRED = 1
+    UNSET_PREFERRED = 2
+    ACCESSED_BY = 3
+    UNSET_ACCESSED_BY = 4
+    READ_DUP = 5
+    COMPRESSIBLE = 6     # arg1 = Compress format (UVM_ADVISE_COMPRESSIBLE)
+
+
+SQE_LINK = 0x1
+SQE_WRITE = 0x2
+
 NDEPS = 4                      # dep slots per SQE (memring.h)
 DEP_SEQ_BITS = 47
 DEP_ORDERED_FLAG = 1 << DEP_SEQ_BITS
 DEP_RING_SHIFT = 48
+DEP_BATCH = 0xFFFF             # intra-batch index pseudo-ring
 
 
 def dep(ring, seq: int, ordered: bool = False) -> int:
@@ -58,6 +76,13 @@ def dep(ring, seq: int, ordered: bool = False) -> int:
     if ordered:
         h |= DEP_ORDERED_FLAG
     return h
+
+
+def dep_batch(index: int, ordered: bool = False) -> int:
+    """A dependency on the ``index``-th op of the batch being staged (not yet
+    published); the prep rewrites it to an absolute handle and refuses an
+    index that does not point backwards."""
+    return dep(DEP_BATCH, index, ordered)
 
 
 class _Sqe(ctypes.Structure):
@@ -114,6 +139,14 @@ class Completion:
         return self.status == 0
 
 
+@dataclasses.dataclass(frozen=True)
+class RingCounts:
+    submitted: int
+    completed: int
+    error_cqes: int
+    cq_overflows: int
+
+
 _bound = None
 
 
@@ -142,6 +175,15 @@ def _lib() -> ctypes.CDLL:
     lib.tpurmMemringSqSpace.restype = u32
     lib.tpurmMemringId.argtypes = [vp]
     lib.tpurmMemringId.restype = u32
+    lib.tpurmMemringCounts.argtypes = [vp, ctypes.POINTER(u64),
+                                       ctypes.POINTER(u64),
+                                       ctypes.POINTER(u64),
+                                       ctypes.POINTER(u64)]
+    lib.tpurmMemringCounts.restype = None
+    lib.tpurmMemringShmFd.argtypes = [vp]
+    lib.tpurmMemringShmFd.restype = ctypes.c_int
+    lib.tpurmMemringNextSeq.argtypes = [vp]
+    lib.tpurmMemringNextSeq.restype = u64
     _bound = lib
     return lib
 
@@ -155,17 +197,17 @@ class MemRing:
     """An async memory-op ring bound to a UVM VA space, or to none
     (``vs=None``: a ring that ships only ICI peer copies).
 
-    Destroy the ring before closing the space.  The prep methods stage
-    SQEs; nothing reaches the workers until :meth:`submit`.  Unlinked ops
-    run concurrently on the worker pool.
+    Destroy the ring before closing the space (or use it as a context
+    manager).  The prep methods stage SQEs; nothing reaches the workers
+    until :meth:`submit`.  Unlinked ops run concurrently on the worker pool
+    (``workers=0``: the engine's default pool).
     """
 
-    def __init__(self, vs, entries: int = 256):
+    def __init__(self, vs, entries: int = 256, workers: int = 0):
         self._lib = _lib()
         handle = ctypes.c_void_p()
-        # workers=0: the engine's default worker pool.
         vs_handle = vs._handle if vs is not None else None
-        _check(self._lib.tpurmMemringCreate(vs_handle, entries, 0,
+        _check(self._lib.tpurmMemringCreate(vs_handle, entries, workers,
                                             ctypes.byref(handle)),
                "tpurmMemringCreate")
         self._handle = handle
@@ -173,8 +215,9 @@ class MemRing:
         self._last_seq: Optional[int] = None
 
     def _prep(self, sqe: _Sqe, deps=None) -> int:
-        self._auto_cookie += 1
-        sqe.userData = self._auto_cookie
+        if sqe.userData == 0:
+            self._auto_cookie += 1
+            sqe.userData = self._auto_cookie
         if deps:
             if len(deps) > NDEPS:
                 raise ValueError(f"at most {NDEPS} deps per op")
@@ -196,35 +239,92 @@ class MemRing:
         """Submission seq of the most recently prepped op."""
         return self._last_seq
 
+    @property
+    def next_seq(self) -> int:
+        """The seq the next prep will be assigned."""
+        return self._lib.tpurmMemringNextSeq(self._handle)
+
+    # Every prep returns the op's cookie: ``user_data``, or the next auto
+    # cookie when it is 0.  ``link`` chains the op to the next one,
+    # ``deadline_ns`` (absolute, the utils clock) fails the op with
+    # RETRY_EXHAUSTED when it is claimed later, ``deps`` holds up to 4
+    # :func:`dep` handles it waits on, and ``flow`` is the tpuflow request
+    # identity it runs under (utils.flow_mint).
+
+    def migrate(self, addr: int, length: int, tier: Tier, dev: int = 0,
+                user_data: int = 0, link: bool = False,
+                deadline_ns: int = 0, deps=None, flow: int = 0) -> int:
+        """Stage a migrate of [addr, addr+length) to ``tier`` (on ``dev``
+        for HBM)."""
+        s = _Sqe(opcode=Op.MIGRATE, flags=SQE_LINK if link else 0,
+                 dstTier=int(tier), devInst=dev, addr=addr, len=length,
+                 userData=user_data, deadlineNs=deadline_ns, flowId=flow)
+        return self._prep(s, deps)
+
     def prefetch(self, addr: int, length: int, dev: int = 0,
+                 write: bool = False, user_data: int = 0,
+                 link: bool = False, deadline_ns: int = 0,
                  deps=None, flow: int = 0) -> int:
-        """Stage a device-access (read) prefetch: fault the span onto
-        ``dev``'s HBM through the batch service loop.  ``deps`` holds up to
-        4 :func:`dep` handles the op waits on; ``flow`` tags the op with a
-        tpuflow request identity.  Returns the op's cookie."""
-        s = _Sqe(opcode=Op.PREFETCH, devInst=dev, addr=addr, len=length,
+        """Stage a device-access prefetch (a write access with ``write``):
+        fault the span onto ``dev``'s HBM through the batch service
+        loop."""
+        flags = (SQE_LINK if link else 0) | (SQE_WRITE if write else 0)
+        s = _Sqe(opcode=Op.PREFETCH, flags=flags, devInst=dev, addr=addr,
+                 len=length, userData=user_data, deadlineNs=deadline_ns,
                  flowId=flow)
         return self._prep(s, deps)
 
-    def evict(self, addr: int, length: int, tier: Tier,
-              flow: int = 0) -> int:
+    def evict(self, addr: int, length: int, tier: Tier = Tier.HOST,
+              user_data: int = 0, link: bool = False,
+              deadline_ns: int = 0, deps=None, flow: int = 0) -> int:
         """Stage a tier demote of [addr, addr+length) to ``tier`` (HOST or
         CXL only)."""
-        s = _Sqe(opcode=Op.EVICT, dstTier=int(tier), addr=addr, len=length,
-                 flowId=flow)
+        s = _Sqe(opcode=Op.EVICT, flags=SQE_LINK if link else 0,
+                 dstTier=int(tier), addr=addr, len=length,
+                 userData=user_data, deadlineNs=deadline_ns, flowId=flow)
+        return self._prep(s, deps)
+
+    def advise(self, addr: int, length: int, advice: Advise,
+               tier: Tier = Tier.HOST, dev: int = 0, on: bool = True,
+               user_data: int = 0, link: bool = False,
+               arg: Optional[int] = None) -> int:
+        """Stage a policy op (preferred tier, accessed-by, read
+        duplication, compressible).  ``arg`` replaces the on/off payload of
+        a subcode that carries a value (COMPRESSIBLE: a Compress
+        format)."""
+        s = _Sqe(opcode=Op.ADVISE, flags=SQE_LINK if link else 0,
+                 dstTier=int(tier), devInst=dev, addr=addr, len=length,
+                 userData=user_data, arg0=int(advice),
+                 arg1=(1 if on else 0) if arg is None else int(arg))
         return self._prep(s)
 
     def peer_copy(self, dev: int, peer: int, local_off: int,
                   peer_off: int, length: int, read: bool = False,
+                  user_data: int = 0, link: bool = False,
                   deps=None, flow: int = 0) -> int:
         """Stage an ICI peer copy between HBM arena offsets (write:
         ``dev``'s ``local_off`` -> ``peer``'s ``peer_off``; ``read=True``
         the other way).  The vac migration engine puts an ordered dep on
         the previous shipping window in ``deps``, so page records land in
         manifest order."""
-        s = _Sqe(opcode=Op.PEER_COPY, devInst=dev, peerInst=peer,
-                 addr=local_off, peerOff=peer_off, len=length,
+        s = _Sqe(opcode=Op.PEER_COPY, flags=SQE_LINK if link else 0,
+                 devInst=dev, peerInst=peer, addr=local_off,
+                 peerOff=peer_off, len=length, userData=user_data,
                  arg0=1 if read else 0, flowId=flow)
+        return self._prep(s, deps)
+
+    def fence(self, user_data: int = 0) -> int:
+        """Stage a fence: it completes only after every op submitted before
+        it has posted its completion, and later ops wait for it."""
+        return self._prep(_Sqe(opcode=Op.FENCE, userData=user_data))
+
+    def nop(self, user_data: int = 0, delay_ns: int = 0,
+            deadline_ns: int = 0, deps=None, flow: int = 0) -> int:
+        """Stage a NOP.  ``delay_ns`` makes the worker sleep that long before
+        completing it (a deterministic hung op).  A NOP with ``deps`` joins
+        its targets without fencing unrelated later traffic."""
+        s = _Sqe(opcode=Op.NOP, userData=user_data, arg1=delay_ns,
+                 deadlineNs=deadline_ns, flowId=flow)
         return self._prep(s, deps)
 
     def submit(self) -> int:
@@ -242,14 +342,15 @@ class MemRing:
             self.wait(wait_for)
         return n
 
-    def drain(self) -> None:
-        """Park until every op submitted so far has completed."""
-        _check(self._lib.tpurmMemringWaitDrain(self._handle, 0),
+    def drain(self, timeout_ns: int = 0) -> None:
+        """Park until every op submitted so far has completed; RmError on a
+        timeout (0: the engine's default)."""
+        _check(self._lib.tpurmMemringWaitDrain(self._handle, timeout_ns),
                "tpurmMemringWaitDrain")
 
-    def wait(self, n: int) -> None:
-        """Park until ``n`` CQEs are reapable."""
-        _check(self._lib.tpurmMemringWait(self._handle, n, 0),
+    def wait(self, n: int, timeout_ns: int = 0) -> None:
+        """Park until ``n`` CQEs are reapable; RmError on a timeout."""
+        _check(self._lib.tpurmMemringWait(self._handle, n, timeout_ns),
                "tpurmMemringWait")
 
     def completions(self, max_cqes: int = 1024,
@@ -272,7 +373,26 @@ class MemRing:
     def sq_space(self) -> int:
         return self._lib.tpurmMemringSqSpace(self._handle)
 
+    @property
+    def counts(self) -> RingCounts:
+        sub, comp = ctypes.c_uint64(), ctypes.c_uint64()
+        err, ovf = ctypes.c_uint64(), ctypes.c_uint64()
+        self._lib.tpurmMemringCounts(self._handle, ctypes.byref(sub),
+                                     ctypes.byref(comp), ctypes.byref(err),
+                                     ctypes.byref(ovf))
+        return RingCounts(sub.value, comp.value, err.value, ovf.value)
+
+    def shm_fd(self) -> int:
+        """The memfd backing the ring region (header, SQ and CQ)."""
+        return self._lib.tpurmMemringShmFd(self._handle)
+
     def close(self) -> None:
         if self._handle:
             self._lib.tpurmMemringDestroy(self._handle)
             self._handle = None
+
+    def __enter__(self) -> "MemRing":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()

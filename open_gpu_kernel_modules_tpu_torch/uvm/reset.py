@@ -1,11 +1,10 @@
 """Full-device reset and the device generation (native/src/reset.c).
 
-The port's copy of the part of the JAX package's ``uvm/reset.py`` that the
-tiered KV backing and the scheduler use: ``generation()``, which bumps once
-per completed full-device reset; ``device_reset()``, which forces one
-(quiesce, generation bump, restore); ``watchdog_start()``, which starts the
-hung-op watchdog whose health tick posts chip evacuation requests; and
-``stats()``.
+The port's copy of the JAX package's ``uvm/reset.py``: ``generation()``,
+which bumps once per completed full-device reset; ``device_reset()``, which
+forces one (quiesce, generation bump, restore); ``watchdog_start()``, which
+starts the hung-op watchdog whose health tick posts chip evacuation
+requests; and ``stats()``, with each reset's time to recover (MTTR).
 ``ManagedKVBacking.read_pages`` retries a batch the generation fence
 rejected only while the generation keeps advancing; the scheduler polls it
 every round and parks and restores its running sequences when it moved.
@@ -56,6 +55,17 @@ class ResetStats:
     last_restore_ns: int
     mttr_sum_ns: int
     stale_completions: int
+
+    @property
+    def last_mttr_ms(self) -> float:
+        """The last reset's time to recover (quiesce to restore), ms."""
+        return self.last_mttr_ns / 1e6
+
+    @property
+    def mean_mttr_ms(self) -> float:
+        """Mean time to recover over every reset, ms (0 before any)."""
+        return (self.mttr_sum_ns / self.resets / 1e6) if self.resets \
+            else 0.0
 
 
 def _lib() -> ctypes.CDLL:

@@ -1,18 +1,18 @@
 """tpuvac — health-driven live evacuation of KV records between chips.
 
-The port's copy of the part of the JAX package's ``uvm/vac.py`` that the
-scheduler's chip evacuation and tpusplit's KV shipping use: the face of
+The port's copy of the JAX package's ``uvm/vac.py``: the face of
 native/src/health.c plus the drain-and-migrate protocol over the multichip
 KV pool (``models/multichip.py`` provides the mechanism: staged record
 allocation, home-map flips, charge rebinds).
 
-``state`` / ``note`` / ``clear``
+``state`` / ``score`` / ``info`` / ``note`` / ``clear``
     The per-device hysteretic health scorer (HEALTHY -> DEGRADED ->
     EVACUATING); ``note`` feeds synthetic evidence.
 
-``evac_pending`` / ``evac_ack`` / ``pick_target``
-    The evacuation rendezvous: the reset watchdog's EVACUATE rung posts a
-    request; the scheduler polls ``evac_pending`` between decode rounds,
+``evac_pending`` / ``evac_ack`` / ``request`` / ``pick_target``
+    The evacuation rendezvous: the reset watchdog's EVACUATE rung (or an
+    operator's planned move through ``request``) posts a request; the
+    scheduler polls ``evac_pending`` between decode rounds,
     drains the chip, and ``evac_ack``s inside the grace window.
 
 ``migrate_pages``
@@ -35,7 +35,7 @@ import ctypes
 import dataclasses
 import enum
 import time
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 from .. import utils as _utils
 from ..runtime import native
@@ -74,6 +74,33 @@ class Event(enum.IntEnum):
 
 AUTO_TARGET = 0xFFFFFFFF        # let the engine pick (health.h ~0u)
 
+
+class _Info(ctypes.Structure):
+    _fields_ = [
+        ("state", ctypes.c_uint32),
+        ("evacPending", ctypes.c_uint32),
+        ("score", ctypes.c_uint64),
+        ("transitions", ctypes.c_uint64),
+        ("lastEventNs", ctypes.c_uint64),
+        ("events", ctypes.c_uint64 * len(Event)),
+        ("evacTarget", ctypes.c_uint32),
+        ("evacReqId", ctypes.c_uint64),
+    ]
+
+
+@dataclasses.dataclass(frozen=True)
+class HealthInfo:
+    """Snapshot of one device's health (health.h TpuHealthInfo); ``events``
+    counts each Event, keyed by its lower-case name."""
+
+    state: HealthState
+    score: int
+    transitions: int
+    events: Dict[str, int]
+    evac_pending: bool
+    evac_target: int
+    evac_req_id: int
+
 _bound = None
 
 
@@ -89,6 +116,12 @@ def _lib() -> ctypes.CDLL:
     lib.tpurmDeviceHealthState.restype = u32
     lib.tpurmHealthClear.argtypes = [u32]
     lib.tpurmHealthClear.restype = None
+    lib.tpurmDeviceHealthScore.argtypes = [u32]
+    lib.tpurmDeviceHealthScore.restype = u64
+    lib.tpurmHealthInfo.argtypes = [u32, ctypes.POINTER(_Info)]
+    lib.tpurmHealthInfo.restype = u32
+    lib.tpurmHealthEvacRequestClient.argtypes = [u32, u32]
+    lib.tpurmHealthEvacRequestClient.restype = u32
     lib.tpurmHealthEvacPending.argtypes = [u32, ctypes.POINTER(u32),
                                            ctypes.POINTER(u64)]
     lib.tpurmHealthEvacPending.restype = ctypes.c_bool
@@ -135,6 +168,22 @@ def clear(dev: int) -> None:
     _lib().tpurmHealthClear(dev)
 
 
+def score(dev: int) -> int:
+    """The decayed health score (integer points)."""
+    return _lib().tpurmDeviceHealthScore(dev)
+
+
+def info(dev: int) -> HealthInfo:
+    raw = _Info()
+    _check(_lib().tpurmHealthInfo(dev, ctypes.byref(raw)), "tpurmHealthInfo")
+    return HealthInfo(
+        state=HealthState(raw.state), score=raw.score,
+        transitions=raw.transitions,
+        events={e.name.lower(): raw.events[e.value] for e in Event},
+        evac_pending=bool(raw.evacPending), evac_target=raw.evacTarget,
+        evac_req_id=raw.evacReqId)
+
+
 # ------------------------------------------------- evacuation rendezvous
 
 
@@ -151,6 +200,15 @@ def evac_pending(dev: int) -> Optional[Tuple[int, int]]:
 def evac_ack(dev: int, req_id: int, success: bool) -> None:
     _check(_lib().tpurmHealthEvacAck(dev, req_id, success),
            "tpurmHealthEvacAck")
+
+
+def request(src: int, target: Optional[int] = None) -> None:
+    """Post an operator's planned move of ``src`` (a brokered client's
+    request lands in the engine host's rendezvous); ``target=None`` lets the
+    engine pick a healthy peer with headroom (AUTO_TARGET)."""
+    _check(_lib().tpurmHealthEvacRequestClient(
+        src, AUTO_TARGET if target is None else target),
+        "tpurmHealthEvacRequest")
 
 
 def pick_target(src: int) -> Optional[int]:
