@@ -39,12 +39,23 @@ width (random weights from a seed):
 8. scheduler: the continuous-batching ``Scheduler`` over the tiered cache,
    8 streams of 504-token prompts, 64 new tokens each, 8 a round (5
    submitted, two rounds, then 3 more mid-decode): run A at ``oversub`` 1,
-   run A' the same with three forced device resets (its tokens must equal
-   A's), run B at ``oversub`` 2, where decode growth must preempt and every
-   preempted stream must be restored, and an untimed run T, A again with one
-   steady round traced by the profiler (its tokens must equal A's); B1 must
-   launch once per layer per decode step of every round, and no flash
-   kernel;
+   runs D1, N1, N2, D2 in that order, each A with streams on tenants
+   i % 2 and every ``step`` inside a ``utils.span`` application span, the
+   N runs with the native trace armed for the whole run (their tokens must
+   equal A's; in each N the ``sched.round``, ``sched.admit`` and step-span
+   histograms must count its rounds and admissions, the Chrome export must
+   parse and hold both span kinds and a request's flow start paired with a
+   finish on another thread, each tenant's ITL and TTFT series must count
+   its tokens and streams, every flow ledger must close within its wall,
+   and the scrape must match the stats and the ring accounting; it prints
+   the N runs' tok/s against the D runs' (the cost of arming) and A's, the
+   trace's ring accounting, the ``sched.round`` and ``fault.latency``
+   quantiles and the export's size), run A' the same
+   as A with three forced device resets (its tokens must equal A's), run B
+   at ``oversub`` 2, where decode growth must preempt and every preempted
+   stream must be restored, and an untimed run T, A again with one steady
+   round traced by the profiler (its tokens must equal A's); B1 must launch
+   once per layer per decode step of every round, and no flash kernel;
 9. multichip (BASELINE config #5): the KV pool striped over four native
    device arenas (``TPUMEM_FAKE_TPU_COUNT=4``, set before the engine loads)
    and moved over its ICI model, in pages of 16 tokens (a page's record is
@@ -135,6 +146,7 @@ Imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import json
 import os
@@ -827,13 +839,17 @@ SCHED_RESETS = (2, 4, 6)        # run A': device resets after these rounds
 SCHED_PROFILED_ROUND = 6
 
 
-def sched_drive(s, prompts, after=None, traced_round=0):
+def sched_drive(s, prompts, after=None, traced_round=0, step_span=None):
     """Drive a Scheduler the way its users would: submit 5 streams, step
     twice, submit 3 more, step until idle.  ``after[r](s)`` runs after round
     r; ``traced_round`` runs that round under the profiler (the run's wall
-    then includes the profiler's cost: it is not a throughput).  Returns
-    (requests, wall s, (host ms, kernel ms) of the traced round or None,
-    the decode batch of every round that decoded)."""
+    then includes the profiler's cost: it is not a throughput).  With
+    ``step_span`` stream i is tenant i % 2 (else tenant 0) and each step
+    runs inside that application span of the native trace, its object the
+    step's number.  Returns (requests, wall s, (host ms, kernel
+    ms) of the traced round or None, the decode batch of every round that
+    decoded)."""
+    from open_gpu_kernel_modules_tpu_torch import utils
     t = SCHED
     after = after or {}
     traced = None
@@ -842,18 +858,25 @@ def sched_drive(s, prompts, after=None, traced_round=0):
 
     def counted_step():
         before = s.stats["decoded_tokens"]
-        out = step()
+        with (utils.span(step_span, obj=steps) if step_span
+              else contextlib.nullcontext()):
+            out = step()
         n = (s.stats["decoded_tokens"] - before) // s.tokens_per_round
         if n:
             batches.append(n)
         return out
+
+    def submit(first, last):
+        return [s.submit(prompts[i], t["new"],
+                         tenant=i % 2 if step_span else 0)
+                for i in range(first, last)]
     s.step = counted_step
     t0 = time.perf_counter()
-    reqs = [s.submit(p, t["new"]) for p in prompts[:t["first"]]]
+    reqs = submit(0, t["first"])
     steps = 0
     while not s.idle or steps < 2:
         if steps == 2 and len(reqs) < t["streams"]:
-            reqs += [s.submit(p, t["new"]) for p in prompts[t["first"]:]]
+            reqs += submit(t["first"], t["streams"])
         steps += 1
         if steps == traced_round:
             host, kern, _ = profiled(s.step)
@@ -866,9 +889,12 @@ def sched_drive(s, prompts, after=None, traced_round=0):
     return reqs, time.perf_counter() - t0, traced, batches
 
 
-def sched_run(cfg, params, prompts, oversub, resets=(), traced_round=0):
-    """One scheduler run over a managed tiered cache (``sched_drive``);
-    ``resets`` force a device reset after those rounds.  Returns (tokens
+def sched_run(cfg, params, prompts, oversub, resets=(), traced_round=0,
+              step_span=None, native_trace=None):
+    """One scheduler run over a managed tiered cache (``sched_drive``, with
+    ``step_span``); ``resets`` force a device reset after those rounds.
+    With ``native_trace`` (a ``NativeTrace``) the native trace is armed for
+    the whole drive and read before the scheduler closes.  Returns (tokens
     [streams, new], report with ``reset_s``, the host time spent inside the
     forced resets, and (host ms, kernel ms) of the traced round or None)."""
     from open_gpu_kernel_modules_tpu_torch.runtime import sched
@@ -885,9 +911,13 @@ def sched_run(cfg, params, prompts, oversub, resets=(), traced_round=0):
         reset.device_reset()
         reset_s[0] += time.perf_counter() - r0
     try:
-        reqs, wall, traced, _ = sched_drive(
-            s, prompts, {r: timed_reset for r in resets}, traced_round)
+        with native_trace or contextlib.nullcontext():
+            reqs, wall, traced, _ = sched_drive(
+                s, prompts, {r: timed_reset for r in resets}, traced_round,
+                step_span)
         rep = s.report(wall)
+        if native_trace is not None:
+            native_trace.read(s, reqs, rep)
         rep["reset_s"] = round(reset_s[0], 3)
         check(all(r.state is sched.RequestState.FINISHED for r in reqs),
               f"scheduler oversub={oversub}: a stream did not finish")
@@ -897,9 +927,135 @@ def sched_run(cfg, params, prompts, oversub, resets=(), traced_round=0):
     return tokens, rep, traced
 
 
-def phase_sched(cfg, params, gen):
-    """The Scheduler at full width: runs A (oversub 1), A' (A with three
-    forced device resets), B (oversub 2, preempting) and T (A with one
+class NativeTrace:
+    """A run N's native trace, as a context: entering arms it (rings, site
+    histograms, flows and SLO series cleared first), leaving disarms it.
+    ``read`` then holds it to the run: the round, admission and step-span
+    histograms to the Scheduler's counts, the Chrome export's format,
+    events and request flow pairs, the per-tenant SLO series to the tokens,
+    every flow ledger closed within its wall, the scrape's scheduler
+    counters to the Scheduler's stats and its trace records to the ring
+    accounting.  The export is saved to ``export_dir`` under the run's
+    ``name``.  ``facts`` gathers what the phase prints."""
+
+    STEP_SPAN = "chip_smoke.sched_step"
+
+    def __init__(self, export_dir: str, name: str):
+        self.export_dir = export_dir
+        self.name = name
+        self.facts = {}
+
+    def __enter__(self) -> "NativeTrace":
+        self.arm()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        from open_gpu_kernel_modules_tpu_torch import utils
+        utils.trace_stop()
+
+    @staticmethod
+    def scrape(text: str, name: str) -> int:
+        """The value of one engine counter in the Prometheus scrape, summed
+        over its labels."""
+        head = f'tpurm_counter{{name="{name}"'
+        return sum(int(float(line.rsplit(" ", 1)[1]))
+                   for line in text.splitlines() if line.startswith(head))
+
+    def arm(self) -> None:
+        from open_gpu_kernel_modules_tpu_torch import utils
+        utils.flow_reset()
+        utils.trace_reset()
+        text = utils.metrics_text()
+        self.before = {n: self.scrape(text, n)
+                       for n in ("tpusched_rounds", "tpusched_admitted")}
+        utils.trace_start()
+
+    def read(self, s, reqs, rep) -> None:
+        from open_gpu_kernel_modules_tpu_torch import utils
+        f = self.facts
+        who = f"scheduler {self.name}"
+        rounds, admitted = rep["rounds"], rep["admitted"]
+        passes = utils.trace_hist_count("sched.round")
+        check(passes == rounds,
+              f"{who}: {passes} sched.round spans for {rounds} rounds")
+        # sched.admit: one span per admission pass (one a round) and one
+        # per admitted stream (its prefill, the flow's start).
+        admits = utils.trace_hist_count("sched.admit")
+        check(admits == rounds + admitted,
+              f"{who}: {admits} sched.admit spans for {rounds} rounds and "
+              f"{admitted} admissions")
+        # Every step is one round inside one application span.
+        steps = utils.trace_hist_count("app.span")
+        check(steps == rounds,
+              f"{who}: {steps} step spans for {rounds} rounds")
+        f["trace_stats"] = utils.trace_stats()
+        for site in ("sched.round", "fault.latency"):
+            f[site] = [utils.trace_quantile_ns(site, q) / 1e3
+                       for q in (0.5, 0.99)]
+        path = utils.trace_save(os.path.join(
+            self.export_dir, f"sched_trace_{self.name}.json"))
+        f["export_bytes"] = os.path.getsize(path)
+        with open(path) as fh:
+            events = json.load(fh)["traceEvents"]
+        f["export_events"] = len(events)
+        meta = [e for e in events if e["name"] == "tpurm.export"]
+        check(len(meta) == 1, f"{who}: no tpurm.export event")
+        f["export_dropped"] = meta[0]["args"]["exportDropped"]
+        names = {e["name"] for e in events}
+        for want in ("sched.round", self.STEP_SPAN):
+            check(want in names, f"{who}: no {want} in the export")
+        starts = [e for e in events if e.get("ph") == "s"]
+        ends = [e for e in events if e.get("ph") == "f"]
+        minted = {r.flow & ~0xFFFF for r in reqs}
+        check(bool(starts) and all(int(e["id"], 16) in minted
+                                   for e in starts),
+              f"{who}: {len(starts)} flow starts, not all minted request "
+              f"flows")
+        ends_by_id = {}
+        for e in ends:
+            ends_by_id.setdefault(e["id"], set()).add(e["tid"])
+        paired = sum(1 for e in starts
+                     if ends_by_id.get(e["id"], set()) - {e["tid"]})
+        check(paired >= 1,
+              f"{who}: none of {len(starts)} flow starts paired with a "
+              f"finish on another thread ({len(ends)} finishes)")
+        f["flows"] = {"starts": len(starts), "finishes": len(ends),
+                      "paired": paired}
+        for tenant in (0, 1):
+            mine = [r for r in reqs if r.tenant == tenant]
+            itl, ttft = (utils.slo_count(tenant, k) for k in ("itl", "ttft"))
+            check(itl == sum(r.decoded for r in mine) and
+                  ttft == len(mine),
+                  f"{who}: tenant {tenant} itl {itl} ttft {ttft} for "
+                  f"{sum(r.decoded for r in mine)} tokens of {len(mine)} "
+                  f"streams")
+        flows = utils.flow_report()
+        check(len(flows) == len(reqs) and
+              all(fl["state"] == "closed" and
+                  sum(fl["blame_ns"].values()) <= fl["wall_ns"]
+                  for fl in flows),
+              f"{who}: flow ledgers {flows}")
+        scrape = utils.metrics_text()
+        for name, stat in (("tpusched_rounds", "rounds"),
+                           ("tpusched_admitted", "admitted")):
+            delta = self.scrape(scrape, name) - self.before[name]
+            check(delta == s.stats[stat],
+                  f"{who}: scrape {name} moved {delta}, stats {stat} "
+                  f"{s.stats[stat]}")
+        recorded = [int(float(line.split()[-1]))
+                    for line in scrape.splitlines()
+                    if line.startswith("tpurm_trace_records_total")]
+        check(recorded == [utils.trace_stats()["recorded"]],
+              f"{who}: tpurm_trace_records_total {recorded}, recorded "
+              f"{utils.trace_stats()['recorded']}")
+
+
+def phase_sched(cfg, params, gen, export_dir):
+    """The Scheduler at full width: runs A (oversub 1); D1, N1, N2, D2 (A
+    on two tenants with every step an application span, N with the native
+    trace armed and its export saved to ``export_dir``, D disarmed, in that
+    order so that the N/D ratio is the cost of arming alone); A' (A with
+    three forced device resets), B (oversub 2, preempting) and T (A with one
     round traced, untimed).  Returns B1's launches and the prompts."""
     from open_gpu_kernel_modules_tpu_torch.ops import (flash_attention,
                                                        paged_attention)
@@ -910,9 +1066,14 @@ def phase_sched(cfg, params, gen):
         f"run A'")
     torch.cuda.synchronize()
     reset_counts()
-    runs = {"A": sched_run(cfg, params, prompts, 1),
-            "A'": sched_run(cfg, params, prompts, 1, SCHED_RESETS),
-            "B": sched_run(cfg, params, prompts, 2)}
+    traces = {n: NativeTrace(export_dir, n) for n in ("N1", "N2")}
+    runs = {"A": sched_run(cfg, params, prompts, 1)}
+    for name in ("D1", "N1", "N2", "D2"):
+        runs[name] = sched_run(cfg, params, prompts, 1,
+                               step_span=NativeTrace.STEP_SPAN,
+                               native_trace=traces.get(name))
+    runs["A'"] = sched_run(cfg, params, prompts, 1, SCHED_RESETS)
+    runs["B"] = sched_run(cfg, params, prompts, 2)
     trace = sched_run(cfg, params, prompts, 1,
                       traced_round=SCHED_PROFILED_ROUND)
     launches = paged_attention.launches
@@ -933,6 +1094,9 @@ def phase_sched(cfg, params, gen):
         check(rep["finished"] == t["streams"],
               f"scheduler {name}: {rep['finished']} streams finished")
     a, a2, b = (runs[k] for k in ("A", "A'", "B"))
+    for name in ("D1", "N1", "N2", "D2"):
+        check(bool((runs[name][0] == a[0]).all()),
+              f"scheduler: tokens of run {name} differ from A's")
     check(a2[1]["device_resets_observed"] >= len(SCHED_RESETS),
           f"scheduler A': observed {a2[1]['device_resets_observed']} resets")
     check(bool((a2[0] == a[0]).all()),
@@ -954,6 +1118,20 @@ def phase_sched(cfg, params, gen):
             f"{rep['p99_token_ms']}, preempted {rep['preempted']}, restored "
             f"{rep['restored']}, rounds {rep['rounds']}, wall_s "
             f"{rep['wall_s']}, reset_s {rep['reset_s']}")
+    def toks(*names):
+        return sum(runs[k][1]["agg_toks_per_s"] for k in names) / len(names)
+    log(f"scheduler: native trace armed against disarmed (D1, N1, N2, D2): "
+        f"N {toks('N1', 'N2'):.2f} tok/s, D {toks('D1', 'D2'):.2f}: ratio "
+        f"{toks('N1', 'N2') / toks('D1', 'D2'):.4f}; N against A "
+        f"{toks('N1', 'N2') / toks('A'):.4f}")
+    for name, nt in traces.items():
+        f = nt.facts
+        log(f"scheduler {name}: trace_stats {f['trace_stats']}; sched.round "
+            f"p50/p99 {f['sched.round'][0]:.1f}/{f['sched.round'][1]:.1f} "
+            f"us, fault.latency p50/p99 {f['fault.latency'][0]:.1f}/"
+            f"{f['fault.latency'][1]:.1f} us; export {f['export_bytes']} "
+            f"bytes, {f['export_events']} events ({f['export_dropped']} "
+            f"dropped by the export); flows {f['flows']}")
     host, kern = trace[2]
     busy = "not measured" if kern is None else f"{kern / host:.3f}"
     log(f"scheduler T round {SCHED_PROFILED_ROUND} (profiled): {host:.1f} ms "
@@ -2655,8 +2833,8 @@ def main() -> int:
     # Read by the native engine when it loads (it has not yet).
     os.environ["TPUMEM_FAKE_HBM_MB"] = str(ARENA_MB)
     os.environ["TPUMEM_FAKE_TPU_COUNT"] = str(ARENAS)
-    # Crash bundles (phase 13's dump.write site, vac aborts) go to a
-    # directory of the run's own.
+    # Crash bundles (phase 13's dump.write site, vac aborts) and phase 8's
+    # trace export go to a directory of the run's own.
     dumps = tempfile.mkdtemp(prefix="chip_smoke_dumps.")
     os.environ["TPUMEM_DUMP_DIR"] = dumps
     try:
@@ -2691,7 +2869,8 @@ def run() -> int:
     b2_launches += phase_flash_forward(cfg, params, gen)
     tiered_launches, *tiered = phase_tiered(cfg, params, gen)
     b1_launches += tiered_launches
-    launches, sched_prompts = phase_sched(cfg, params, gen)
+    launches, sched_prompts = phase_sched(cfg, params, gen,
+                                          os.environ["TPUMEM_DUMP_DIR"])
     b1_launches += launches
     launches, m2_0 = phase_multichip(cfg, params, gen, tiered, smi)
     b1_launches += launches

@@ -33,3 +33,5 @@ Entry points run on the CUDA card unless the caller passes
 """
 
 from . import device  # noqa: F401  (pins fp32 matmuls to full precision)
+
+__version__ = "0.1.0"

@@ -111,6 +111,10 @@ def _counter_add(name: str, delta: int = 1) -> None:
 #: Round budget of :meth:`Scheduler.run`.
 MAX_ROUNDS = 100000
 
+#: Native trace span of a ``sched.*`` site: ``_span(site, obj=0)``, a no-op
+#: while tracing is disarmed.
+_span = _utils._site_span
+
 
 def _pad_pow2(n: int) -> int:
     p = 1
@@ -500,7 +504,7 @@ class Scheduler:
         the park to the flow's reset bucket, not preempted."""
         _utils.flow_set(req.flow)
         try:
-            with _utils.span("sched.preempt", obj=req.rid):
+            with _span("sched.preempt", obj=req.rid):
                 # _cur_tok holds the stream's truth (updated every round);
                 # only the KV pages need persisting.
                 self.cache.flush_group([req.seq])
@@ -723,7 +727,7 @@ class Scheduler:
         self._disagg_reclaim(req)
         try:
             _utils.flow_set(req.flow)
-            with _utils.span("sched.admit", obj=req.rid):
+            with _span("sched.admit", obj=req.rid):
                 serving.prefill_group(
                     self.cfg, self.params, self.cache, [seq],
                     torch.as_tensor(req.prompt[None, :],
@@ -763,7 +767,7 @@ class Scheduler:
         return True
 
     def _try_admissions(self) -> None:
-        with _utils.span("sched.admit"):
+        with _span("sched.admit"):
             if (self._preempted or self._queue) and not self._admit_gate():
                 return
             # Restores outrank fresh admissions (they were admitted first);
@@ -1008,7 +1012,7 @@ class Scheduler:
         """One scheduling round: admit/restore, fit-check (preempting
         SLO-ordered victims if decode growth outgrew the pool), ONE batched
         decode, retire.  Returns live counts."""
-        with _utils.span("sched.round", obj=self.stats["rounds"]):
+        with _span("sched.round", obj=self.stats["rounds"]):
             self._check_generation()
             self._check_evacuation()
             self._try_admissions()

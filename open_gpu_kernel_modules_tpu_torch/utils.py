@@ -8,9 +8,10 @@ same names:
   them (``registry_get``), and the procfs nodes (``procfs_read``,
   ``procfs_list``, ``metrics_text``, the Prometheus exposition);
 - tputrace (native/src/trace.c): arm, disarm and clear the span rings,
-  emit a span of a named site (``span``), read a site's latency histogram
-  (count and quantiles), the ring accounting, and the Chrome trace-event
-  JSON export (as text, parsed, or saved to a file);
+  emit an application span under any name (``span``, site ``app.span``),
+  read a site's latency histogram (count and quantiles), the ring
+  accounting, and the Chrome trace-event JSON export (as text, parsed, or
+  saved to a file);
 - tpuflow (native/src/flow.c): mint flow ids (tenant << 48 | request <<
   16), open and close per-request blame ledgers, charge blame buckets, set
   the calling thread's flow context, feed and read the per-tenant TTFT and
@@ -75,6 +76,10 @@ def _lib() -> ctypes.CDLL:
     lib.tpurmTraceBegin.restype = u64
     lib.tpurmTraceEnd.argtypes = [u32, u64, u64, u64]
     lib.tpurmTraceEnd.restype = None
+    lib.tpurmTraceNowNs.argtypes = []
+    lib.tpurmTraceNowNs.restype = u64
+    lib.tpurmTraceAppSpan.argtypes = [ctypes.c_char_p, u64, u64, u64]
+    lib.tpurmTraceAppSpan.restype = None
     lib.tpurmFlowMint.argtypes = [u32, u32]
     lib.tpurmFlowMint.restype = u64
     lib.tpurmFlowOpen.argtypes = [u64]
@@ -158,8 +163,9 @@ def procfs_list() -> List[str]:
 
 # ------------------------------------------------------------------ tracing
 
-def trace_site(name: str) -> int:
-    """A trace site's id by name ("sched.round", "fault.latency", ...)."""
+def _trace_site(name: str) -> int:
+    """A registered trace site's id by name ("sched.round",
+    "fault.latency", ...)."""
     if not _TRACE_SITES:
         lib = _lib()
         i = 0
@@ -173,17 +179,42 @@ def trace_site(name: str) -> int:
 
 
 class span:
-    """A native trace span of a named site (``sched.round``,
-    ``vac.migrate``, ...), with an object id and a byte count; a no-op
-    while tracing is disarmed (tpurmTraceBegin's relaxed-load fast
-    path)."""
+    """An application span in the trace rings (site ``app.span``, exported
+    under ``name``), with an object id and a byte count::
+
+        with utils.span("tokenize", nbytes=len(blob)):
+            ...
+
+    While tracing is disarmed it costs one native call each way and emits
+    nothing."""
+
+    def __init__(self, name: str, obj: int = 0, nbytes: int = 0):
+        self._name = name.encode()
+        self._obj = obj
+        self._bytes = nbytes
+        self._t0 = 0
+
+    def __enter__(self) -> "span":
+        self._t0 = _lib().tpurmTraceNowNs()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        _lib().tpurmTraceAppSpan(self._name, self._t0, self._obj,
+                                 self._bytes)
+
+
+class _site_span:
+    """A span of a registered engine site (``sched.round``,
+    ``vac.migrate``, ...), with an object id and a byte count; a no-op while
+    tracing is disarmed (tpurmTraceBegin's relaxed-load fast path).  The
+    Scheduler's and vac's ``_span`` helpers are this class."""
 
     def __init__(self, site: str, obj: int = 0, bytes_: int = 0):
-        self._site = trace_site(site)
+        self._site = _trace_site(site)
         self._obj = obj
         self.bytes = bytes_
 
-    def __enter__(self) -> "span":
+    def __enter__(self) -> "_site_span":
         self._t0 = _lib().tpurmTraceBegin()
         return self
 
@@ -210,7 +241,7 @@ def trace_armed() -> bool:
 
 
 def _site_id(site) -> int:
-    return trace_site(site) if isinstance(site, str) else int(site)
+    return _trace_site(site) if isinstance(site, str) else int(site)
 
 
 def trace_hist_count(site) -> int:

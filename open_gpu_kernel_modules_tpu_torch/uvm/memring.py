@@ -203,7 +203,7 @@ class MemRing:
     (``workers=0``: the engine's default pool).
     """
 
-    def __init__(self, vs, entries: int = 256, workers: int = 0):
+    def __init__(self, vs=None, entries: int = 256, workers: int = 0):
         self._lib = _lib()
         handle = ctypes.c_void_p()
         vs_handle = vs._handle if vs is not None else None

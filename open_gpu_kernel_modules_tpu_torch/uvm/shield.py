@@ -144,14 +144,14 @@ def crc32c_at(addr: int, length: int) -> int:
     return int(_lib().tpurmShieldCrc32c(addr, length))
 
 
-def inject_wire(buf, scope: int) -> bool:
+def inject_wire(buf, scope: int = 0) -> bool:
     """One mem.corrupt evaluation over a shipped buffer: a hit flips one bit
     in place (a verify must follow, which keeps the reconciliation exact)."""
     ptr, n = _buf_ptr_len(buf)
     return bool(_lib().tpurmShieldInjectWire(ptr, n, scope))
 
 
-def verify_wire(buf, expect_crc: int, scope: int) -> bool:
+def verify_wire(buf, expect_crc: int, scope: int = 0) -> bool:
     """CRC-check a shipped buffer against its seal; False on a mismatch
     (counted; the caller re-ships from its intact source)."""
     ptr, n = _buf_ptr_len(buf)

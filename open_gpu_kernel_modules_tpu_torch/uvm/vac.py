@@ -152,6 +152,11 @@ def _counter_add(name: str, delta: int = 1) -> None:
     _lib().tpuCounterAdd(name.encode(), delta)
 
 
+#: Native trace span of the ``vac.migrate`` site: ``_span(site, obj=0,
+#: bytes_=0)``, a no-op while tracing is disarmed.
+_span = _utils._site_span
+
+
 # ------------------------------------------------------------- health
 
 
@@ -288,8 +293,8 @@ def migrate_pages(backing, src: int, dst: int,
     if not pages:
         return MigrationReport(src, dst, 0, 0, 0.0, 0, True)
 
-    span = _utils.span("vac.migrate", obj=(src << 32) | dst,
-                       bytes_=len(pages) * rec_bytes)
+    span = _span("vac.migrate", obj=(src << 32) | dst,
+                 bytes_=len(pages) * rec_bytes)
     # The shipping ring comes FIRST: a ring-create failure before the
     # manifest exists leaves nothing to clean up, whereas the reverse order
     # would leak the transaction open.
