@@ -984,10 +984,6 @@ class NativeTrace:
         check(admits == rounds + admitted,
               f"{who}: {admits} sched.admit spans for {rounds} rounds and "
               f"{admitted} admissions")
-        # Every step is one round inside one application span.
-        steps = utils.trace_hist_count("app.span")
-        check(steps == rounds,
-              f"{who}: {steps} step spans for {rounds} rounds")
         f["trace_stats"] = utils.trace_stats()
         for site in ("sched.round", "fault.latency"):
             f[site] = [utils.trace_quantile_ns(site, q) / 1e3
@@ -1004,6 +1000,11 @@ class NativeTrace:
         names = {e["name"] for e in events}
         for want in ("sched.round", self.STEP_SPAN):
             check(want in names, f"{who}: no {want} in the export")
+        # Every step is one round inside one application span of its own
+        # name (serving's spans are application spans too).
+        steps = sum(e["name"] == self.STEP_SPAN for e in events)
+        check(steps == rounds,
+              f"{who}: {steps} step spans for {rounds} rounds")
         starts = [e for e in events if e.get("ph") == "s"]
         ends = [e for e in events if e.get("ph") == "f"]
         minted = {r.flow & ~0xFFFF for r in reqs}

@@ -17,6 +17,29 @@ into ``cache.k_pages``/``v_pages`` and returns a cache that shares them, so
 the pool is never copied.  ``seq_lens`` is replaced, never mutated.  The
 tiered cache's slot pool is such a pool: the view ``activate`` returns
 shares ``k_slots``/``v_slots``.
+
+Observability: application trace spans (``utils.span``, recorded while
+tracing is armed), each with an object and a byte count:
+
+- serving: ``serve.prefill_group`` (sequences; prompt tokens times the KV
+  bytes of a token) around ``serve.prefill`` (the forward over the prompt),
+  ``serve.decode_scan`` around one ``serve.decode_step`` a token (the step
+  and its argmax), both with the batch;
+- the tier: ``tier.activate`` (pages missed; bytes uploaded) around
+  ``tier.upload`` (the host-to-device copy of missed pages);
+  ``tier.read_pages`` (pages; bytes handed up) around ``tier.fault_pass``
+  (the memring prefetch pass or the synchronous fault loop) and
+  ``tier.gather`` (the page-major to layer-major copy); ``tier.sync_from``
+  (sequences); ``tier.flush`` (pages; bytes written) around
+  ``tier.download`` (the device gather and readback) and
+  ``tier.writeback`` (the page writes into managed memory), which a spill
+  of the victim ring also emits; ``tier.release`` (the sequence).
+
+The port's own counters (``utils.port_counter_add``), always on, in the
+Prometheus exposition: ``tputier_read_bytes`` and ``tputier_read_ns``
+(every ``read_pages``: bytes handed up, host ns in the call),
+``tputier_flush_bytes`` and ``tputier_flush_ns`` (every ``flush_group``:
+bytes written, host ns of its write-back).
 """
 
 from __future__ import annotations
@@ -28,10 +51,13 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import utils as _utils
 from ..device import DeviceLike, resolve
 from ..ops.paged_attention import paged_attention
 from ..runtime import native as _native
 from . import llama
+
+_span = _utils.span
 
 
 @dataclasses.dataclass
@@ -102,10 +128,11 @@ def prefill(cfg: llama.LlamaConfig, params: Dict, tokens: torch.Tensor,
     b, s = tokens.shape
     # Dense scratch cache sized to the prompt span for the forward pass.
     shape = (cfg.num_layers, b, s, cfg.num_kv_heads, cfg.head_dim)
-    kv = (torch.zeros(shape, dtype=cfg.dtype, device=tokens.device),
-          torch.zeros(shape, dtype=cfg.dtype, device=tokens.device))
-    logits, kv = llama.forward_with_cache(cfg, params, tokens, kv, 0)
-    cache = _write_kv(cache, kv[0], kv[1], 0)
+    with _span("serve.prefill", obj=b):
+        kv = (torch.zeros(shape, dtype=cfg.dtype, device=tokens.device),
+              torch.zeros(shape, dtype=cfg.dtype, device=tokens.device))
+        logits, kv = llama.forward_with_cache(cfg, params, tokens, kv, 0)
+        cache = _write_kv(cache, kv[0], kv[1], 0)
     cache = dataclasses.replace(
         cache, seq_lens=torch.full((b,), s, dtype=torch.int32,
                                    device=tokens.device))
@@ -163,10 +190,13 @@ def decode_scan(cfg: llama.LlamaConfig, params: Dict, tokens: torch.Tensor,
     [B], cache, decoded tokens [n, B])."""
     toks = []
     tok = tokens
-    for _ in range(n):
-        logits, cache = decode_step(cfg, params, tok, cache)
-        tok = torch.argmax(logits, dim=-1).to(torch.int32)
-        toks.append(tok)
+    b = tokens.shape[0]
+    with _span("serve.decode_scan", obj=b):
+        for _ in range(n):
+            with _span("serve.decode_step", obj=b):
+                logits, cache = decode_step(cfg, params, tok, cache)
+                tok = torch.argmax(logits, dim=-1).to(torch.int32)
+            toks.append(tok)
     stacked = torch.stack(toks) if toks else tokens.new_empty((0,) +
                                                               tokens.shape)
     return tok, cache, stacked
@@ -410,6 +440,28 @@ class ManagedKVBacking:
         against the new generation — only while the device generation
         keeps advancing between attempts, with a hard cap as the
         backstop.  Any other error raises."""
+        t0 = time.monotonic_ns()
+        n = len(pages)
+        nbytes = 2 * n * self.rec_bytes
+        with _span("tier.read_pages", obj=n, nbytes=nbytes):
+            with _span("tier.fault_pass", obj=n, nbytes=nbytes):
+                self._fault_pass(pages)
+            with _span("tier.gather", obj=n, nbytes=nbytes):
+                shape = (self.num_layers, n) + self.store_shape[2:]
+                k = _host_empty(shape, self.np_dtype, pin)
+                v = _host_empty(shape, self.np_dtype, pin)
+                store_k, store_v = self._store_k(), self._store_v()
+                for i, page in enumerate(pages):
+                    k[:, i] = store_k[page]             # [L, page...] record
+                    v[:, i] = store_v[page]
+        _utils.port_counter_add("tputier_read_bytes", nbytes)
+        _utils.port_counter_add("tputier_read_ns",
+                                time.monotonic_ns() - t0)
+        return k, v
+
+    def _fault_pass(self, pages: List[int]) -> None:
+        """Fault ``pages`` in for the device: the memring pass, retried
+        across device resets, or without a ring the synchronous loop."""
         if self.ring is not None and pages:
             from ..uvm import reset as _reset
 
@@ -435,14 +487,6 @@ class ManagedKVBacking:
                                          length=self.rec_bytes)
                 self.v_buf.device_access(dev=self.dev, offset=off,
                                          length=self.rec_bytes)
-        shape = (self.num_layers, len(pages)) + self.store_shape[2:]
-        k = _host_empty(shape, self.np_dtype, pin)
-        v = _host_empty(shape, self.np_dtype, pin)
-        store_k, store_v = self._store_k(), self._store_v()
-        for i, page in enumerate(pages):
-            k[:, i] = store_k[page]             # [L, page...] record
-            v[:, i] = store_v[page]
-        return k, v
 
     def write_page(self, page: int, k_rec: np.ndarray,
                    v_rec: np.ndarray) -> None:
@@ -742,8 +786,10 @@ class TieredKVCache:
     def _upload(self, k_chunk: np.ndarray, v_chunk: np.ndarray
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Synchronous upload of host chunks to the slot pool's device."""
-        return (_from_np(k_chunk, self.cfg.dtype).to(self.device),
-                _from_np(v_chunk, self.cfg.dtype).to(self.device))
+        with _span("tier.upload", obj=k_chunk.shape[1],
+                   nbytes=k_chunk.nbytes + v_chunk.nbytes):
+            return (_from_np(k_chunk, self.cfg.dtype).to(self.device),
+                    _from_np(v_chunk, self.cfg.dtype).to(self.device))
 
     def prefetch(self, seq_ids: Sequence[int], new_tokens: int
                  ) -> "StagedActivation":
@@ -813,16 +859,22 @@ class TieredKVCache:
         """
         pinned_before = set(self._active_slots)
         lru_before = list(self._lru)
-        try:
-            return self._activate_body(seq_ids, new_tokens, staged)
-        except BaseException:
-            self._active_slots = pinned_before
-            # Rebuild the LRU in its pre-call order: slots _evict_for
-            # removed rejoin at their old (cold) position whether or not
-            # they were flushed, and slots added mid-call keep a warm
-            # position at the tail.
-            self._lru = dict.fromkeys(lru_before) | self._lru
-            raise
+        uploads, upload_bytes = (self.stats["uploads"],
+                                 self.stats["upload_bytes"])
+        with _span("tier.activate") as sp:
+            try:
+                return self._activate_body(seq_ids, new_tokens, staged)
+            except BaseException:
+                self._active_slots = pinned_before
+                # Rebuild the LRU in its pre-call order: slots _evict_for
+                # removed rejoin at their old (cold) position whether or
+                # not they were flushed, and slots added mid-call keep a
+                # warm position at the tail.
+                self._lru = dict.fromkeys(lru_before) | self._lru
+                raise
+            finally:
+                sp.obj = self.stats["uploads"] - uploads
+                sp.nbytes = self.stats["upload_bytes"] - upload_bytes
 
     def _activate_body(self, seq_ids: Sequence[int], new_tokens: int,
                        staged: Optional["StagedActivation"] = None
@@ -986,6 +1038,12 @@ class TieredKVCache:
         Length bookkeeping is HOST-side arithmetic (`decoded` tokens were
         appended per sequence), so no readback of view.seq_lens is
         needed unless lengths are adopted from the view."""
+        with _span("tier.sync_from", obj=len(seq_ids)):
+            self._sync_from(view, seq_ids, last_tokens, decoded, host_lens)
+
+    def _sync_from(self, view: PagedKVCache, seq_ids: Sequence[int],
+                   last_tokens: Optional[np.ndarray], decoded: int,
+                   host_lens: Optional[np.ndarray]) -> None:
         self.k_slots = view.k_pages
         self.v_slots = view.v_pages
         idx = np.array(seq_ids)
@@ -1026,12 +1084,16 @@ class TieredKVCache:
         bits.  Shared by the ring-spill path and flush_group."""
         if not pairs:
             return
-        idx = _index([s for s, _ in pairs], self.device)
-        k_c = _to_np(_gather_pages(self.k_slots, idx))
-        v_c = _to_np(_gather_pages(self.v_slots, idx))
-        for i, (slot, page) in enumerate(pairs):
-            self.backing.write_page(page, k_c[:, i], v_c[:, i])
-            self._dirty_slots.discard(slot)
+        n = len(pairs)
+        nbytes = 2 * n * self.cfg.num_layers * self.page_bytes
+        with _span("tier.download", obj=n, nbytes=nbytes):
+            idx = _index([s for s, _ in pairs], self.device)
+            k_c = _to_np(_gather_pages(self.k_slots, idx))
+            v_c = _to_np(_gather_pages(self.v_slots, idx))
+        with _span("tier.writeback", obj=n, nbytes=nbytes):
+            for i, (slot, page) in enumerate(pairs):
+                self.backing.write_page(page, k_c[:, i], v_c[:, i])
+                self._dirty_slots.discard(slot)
 
     def flush_group(self, seq_ids: Sequence[int]) -> None:
         """Write a group's dirty RESIDENT pages to the backing and mark
@@ -1041,24 +1103,32 @@ class TieredKVCache:
         clean drops instead of victim-ring traffic.  Any parked ring
         entries for these pages are superseded and recycle.  Parked last
         tokens of the group materialize here too."""
-        self.materialize(seq_ids)
-        m = self.pages_per_seq
-        flush: List[Tuple[int, int]] = []       # (slot, page)
-        for b in seq_ids:
-            for pg in range(m):
-                page = b * m + pg
-                slot = int(self.slot_of[page])
-                if slot >= 0 and slot in self._dirty_slots:
-                    flush.append((slot, page))
-        if not flush:
-            return
-        self._write_back(flush)
-        self.stats["setup_flushes"] = self.stats.get("setup_flushes", 0) + \
-            len(flush)
-        for _, page in flush:
-            e = self._victim_map.pop(page, None)
-            if e is not None:
-                self._victim_free.append(e)
+        with _span("tier.flush") as sp:
+            self.materialize(seq_ids)
+            m = self.pages_per_seq
+            flush: List[Tuple[int, int]] = []       # (slot, page)
+            for b in seq_ids:
+                for pg in range(m):
+                    page = b * m + pg
+                    slot = int(self.slot_of[page])
+                    if slot >= 0 and slot in self._dirty_slots:
+                        flush.append((slot, page))
+            if not flush:
+                return
+            sp.obj = len(flush)
+            sp.nbytes = 2 * len(flush) * self.cfg.num_layers * \
+                self.page_bytes
+            t0 = time.monotonic_ns()
+            self._write_back(flush)
+            _utils.port_counter_add("tputier_flush_bytes", sp.nbytes)
+            _utils.port_counter_add("tputier_flush_ns",
+                                    time.monotonic_ns() - t0)
+            self.stats["setup_flushes"] = \
+                self.stats.get("setup_flushes", 0) + len(flush)
+            for _, page in flush:
+                e = self._victim_map.pop(page, None)
+                if e is not None:
+                    self._victim_free.append(e)
 
     def release_sequence(self, b: int, keep_len: bool = False) -> None:
         """Drop sequence ``b``'s device residency NOW (retire/preempt
@@ -1072,6 +1142,10 @@ class TieredKVCache:
 
         DIRTY slots are NOT written back here — callers that need the
         backing current (preemption) must ``flush_group([b])`` first."""
+        with _span("tier.release", obj=b):
+            self._release_sequence(b, keep_len)
+
+    def _release_sequence(self, b: int, keep_len: bool) -> None:
         self.materialize([b])
         m = self.pages_per_seq
         if keep_len and any((b * m + pg) in self._victim_map
@@ -1137,14 +1211,17 @@ def prefill_group(cfg: llama.LlamaConfig, params: Dict,
     pages are free drops.  The prompt's last tokens park on the device
     until the flush, which folds them to host, so ``cache.last_token`` is
     correct right after prefill."""
-    view = cache.activate(seq_ids, new_tokens=prompt.shape[1])
-    logits, view = prefill(cfg, params, prompt, view)
-    cache.sync_from(view, seq_ids, decoded=0,
-                    host_lens=np.full((len(seq_ids),), prompt.shape[1],
-                                      np.int32))
-    cache.set_last_tokens_dev(seq_ids,
-                              torch.argmax(logits, dim=-1).to(torch.int32))
-    cache.flush_group(seq_ids)
+    kv_token_bytes = 2 * cfg.num_layers * cache.page_bytes // cache.page_size
+    with _span("serve.prefill_group", obj=len(seq_ids),
+               nbytes=int(prompt.numel()) * kv_token_bytes):
+        view = cache.activate(seq_ids, new_tokens=prompt.shape[1])
+        logits, view = prefill(cfg, params, prompt, view)
+        cache.sync_from(view, seq_ids, decoded=0,
+                        host_lens=np.full((len(seq_ids),), prompt.shape[1],
+                                          np.int32))
+        cache.set_last_tokens_dev(
+            seq_ids, torch.argmax(logits, dim=-1).to(torch.int32))
+        cache.flush_group(seq_ids)
 
 
 def decode_rounds(cfg: llama.LlamaConfig, params: Dict,

@@ -217,6 +217,11 @@ def build_native(force: bool = False) -> str:
     return _LIB_PATH
 
 
+def loaded() -> bool:
+    """Whether ``load()`` has loaded the native library in this process."""
+    return _lib is not None
+
+
 def load() -> ctypes.CDLL:
     """The native library, built first if missing."""
     global _lib
@@ -260,6 +265,8 @@ def load() -> ctypes.CDLL:
     lib.tpurmChannelWaitRange.restype = ctypes.c_uint32
     lib.tpurmCounterGet.argtypes = [ctypes.c_char_p]
     lib.tpurmCounterGet.restype = ctypes.c_uint64
+    lib.tpuCounterAdd.argtypes = [ctypes.c_char_p, ctypes.c_uint64]
+    lib.tpuCounterAdd.restype = None
     lib.tpurmJournalDump.argtypes = [ctypes.c_char_p, ctypes.c_size_t]
     lib.tpurmJournalDump.restype = ctypes.c_size_t
     lib.tpurmProcfsRead.argtypes = [ctypes.c_char_p, ctypes.c_char_p,

@@ -39,11 +39,15 @@ tenant; the cache's single shared backing space stays on the default
 tenant, its QoS enforced here.
 
 Observability: ``sched.round`` / ``sched.admit`` / ``sched.preempt`` trace
-spans (arm with ``utils.trace_start()``), ``tpusched_*`` counters in the
-Prometheus exposition, and tpuflow: every request mints a flow id that
-rides the memring ops its pages travel on; the scheduler charges the
-queued, preempted and reset blame buckets and feeds the per-tenant TTFT and
-inter-token-latency histograms.
+spans on the engine's sites and the ``sched.readback`` application span
+around the round's token readback, where the host waits on the card (arm
+with ``utils.trace_start()``); within a round, serving's ``serve.*`` and
+``tier.*`` spans (``models.serving``), those of an admission under the
+request's flow id.  ``tpusched_*`` counters in the Prometheus exposition,
+and tpuflow: every request mints a flow id that rides the memring ops its
+pages travel on; the scheduler charges the queued, preempted and reset
+blame buckets and feeds the per-tenant TTFT and inter-token-latency
+histograms.
 
 Over a multichip cache (``models.multichip``: pages homed on several device
 arenas, moved over ICI) two more branches run: chip EVACUATION
@@ -65,7 +69,6 @@ numpy on the host.
 
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 import enum
 import time
@@ -90,22 +93,8 @@ from . import tpusplit as _tpusplit
 
 # --------------------------------------------------------------- plumbing
 
-_bound = None
-
-
-def _lib() -> ctypes.CDLL:
-    global _bound
-    if _bound is not None:
-        return _bound
-    lib = native.load()
-    lib.tpuCounterAdd.argtypes = [ctypes.c_char_p, ctypes.c_uint64]
-    lib.tpuCounterAdd.restype = None
-    _bound = lib
-    return lib
-
-
 def _counter_add(name: str, delta: int = 1) -> None:
-    _lib().tpuCounterAdd(name.encode(), delta)
+    native.load().tpuCounterAdd(name.encode(), delta)
 
 
 #: Round budget of :meth:`Scheduler.run`.
@@ -1072,7 +1061,8 @@ class Scheduler:
                 torch.as_tensor(toks_in, device=self.cache.device), view,
                 tpr)
             # The round's one readback: [tpr, B] tokens.
-            toks = toks[:, :len(ids)].cpu().numpy().astype(np.int32)
+            with _utils.span("sched.readback", obj=len(ids)):
+                toks = toks[:, :len(ids)].cpu().numpy().astype(np.int32)
             self.cache.sync_from(view, ids, decoded=tpr)
             dt = time.perf_counter() - t0
 

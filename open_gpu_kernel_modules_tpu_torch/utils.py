@@ -6,18 +6,24 @@ same names:
 - diagnostics (native/src/diag.c, procfs.c): the journal text ring
   (``journal_dump``), named counters, registry knobs as the engine reads
   them (``registry_get``), and the procfs nodes (``procfs_read``,
-  ``procfs_list``, ``metrics_text``, the Prometheus exposition);
+  ``procfs_list``, ``metrics_text``, the Prometheus exposition).  Beside
+  the engine's named counters the port keeps its own layers' counters
+  (``port_counter_add``), read by ``counter`` and rendered by
+  ``metrics_text`` as samples of the same ``tpurm_counter`` family;
 - tputrace (native/src/trace.c): arm, disarm and clear the span rings,
   emit an application span under any name (``span``, site ``app.span``),
   read a site's latency histogram (count and quantiles), the ring
   accounting, and the Chrome trace-event JSON export (as text, parsed, or
-  saved to a file);
+  saved to a file).  The rings stamp ``CLOCK_MONOTONIC``; the parsed export
+  carries two clock anchors (``CLOCK_ANCHORS``), so that its events can be
+  set on another timeline, such as ``torch.profiler``'s Unix-epoch one;
 - tpuflow (native/src/flow.c): mint flow ids (tenant << 48 | request <<
   16), open and close per-request blame ledgers, charge blame buckets, set
   the calling thread's flow context, feed and read the per-tenant TTFT and
   inter-token-latency histograms, and the top-K slow-flow report;
 
-All of it is process-wide state in the native library.
+All of it is process-wide state in the native library, but for the port's
+own counters, which are process-wide state of this module.
 """
 
 from __future__ import annotations
@@ -25,7 +31,9 @@ from __future__ import annotations
 import ctypes
 import json
 import os
-from typing import Dict, List, Optional
+import threading
+import time
+from typing import Dict, List, Optional, Tuple
 
 from .runtime import native
 
@@ -35,9 +43,15 @@ FLOW_BUCKETS = ("queued", "preempted", "fault", "copy", "ici", "reset")
 #: SLO histogram kinds, in native TPU_SLO_* order.
 SLO_KINDS = ("ttft", "itl")
 
-#: Buffer sizes for the trace export, the metrics exposition, the journal
-#: text ring, a procfs node, the procfs listing and the slow-flow report.
+#: Buffer sizes for the trace export (its least: the buffer grows with the
+#: records the rings hold, ``TRACE_EVENT_BYTES`` each, so that no export is
+#: cut), the metrics exposition, the journal text ring, a procfs node, the
+#: procfs listing and the slow-flow report.
 TRACE_EXPORT_BYTES = 16 << 20
+#: Export bytes a record may take (the native exporter's reserve for a span
+#: event and its flow event), and those of the document's head and tail.
+TRACE_EVENT_BYTES = 512
+TRACE_EXPORT_TAIL = 1024
 METRICS_BYTES = 1 << 20
 JOURNAL_BYTES = 1 << 16
 PROCFS_BYTES = 1 << 16
@@ -45,6 +59,14 @@ PROCFS_LIST_BYTES = 4096
 FLOW_REPORT_MAX = 64
 
 _bound = None
+
+#: Key of ``trace_export()``'s clock anchors: {"armed": [mono_ns, real_ns],
+#: "exported": [mono_ns, real_ns]}, each a ``clock_anchor()`` taken when
+#: tracing was last armed and when the export was read ("armed" is None if
+#: this process never armed it).  A span's ``ts`` (µs of CLOCK_MONOTONIC)
+#: maps onto CLOCK_REALTIME by linear interpolation between the two.
+CLOCK_ANCHORS = "clockAnchors"
+_armed_anchor: Optional[Tuple[int, int]] = None
 
 #: Trace site name -> id (trace.h TpuTraceSite order, read from the native
 #: table so the two cannot drift).
@@ -127,8 +149,25 @@ def journal_dump() -> List[str]:
             if line]
 
 
+#: Counters of the port's own layers (the tier's ``tputier_*`` in
+#: ``models.serving``): kept here, not in the engine's registry, which is
+#: one per process and shared with the JAX package when both are loaded,
+#: so that its exposition lists only the names the engine and the JAX
+#: package register.
+_port_counters: Dict[str, int] = {}
+_port_lock = threading.Lock()
+
+
+def port_counter_add(name: str, delta: int = 1) -> None:
+    """Add to one of the port's own monotonic counters."""
+    with _port_lock:
+        _port_counters[name] = _port_counters.get(name, 0) + delta
+
+
 def counter(name: str) -> int:
-    """Monotonic named engine counter."""
+    """Monotonic named counter: the port's own, else the engine's."""
+    if name in _port_counters:
+        return _port_counters[name]
     return _lib().tpurmCounterGet(name.encode())
 
 
@@ -180,27 +219,31 @@ def _trace_site(name: str) -> int:
 
 class span:
     """An application span in the trace rings (site ``app.span``, exported
-    under ``name``), with an object id and a byte count::
+    under ``name``, at most 23 characters), with an object id and a byte
+    count, which the body may set before the span closes::
 
-        with utils.span("tokenize", nbytes=len(blob)):
+        with utils.span("tokenize") as sp:
+            sp.nbytes = len(blob)
             ...
 
-    While tracing is disarmed it costs one native call each way and emits
-    nothing."""
+    The start is ``tpurmTraceBegin``'s: while tracing is disarmed a span
+    costs that one relaxed load, reads no clock and emits nothing.  Before
+    the port has loaded the engine it costs nothing and loads nothing."""
 
     def __init__(self, name: str, obj: int = 0, nbytes: int = 0):
         self._name = name.encode()
-        self._obj = obj
-        self._bytes = nbytes
+        self.obj = obj
+        self.nbytes = nbytes
         self._t0 = 0
 
     def __enter__(self) -> "span":
-        self._t0 = _lib().tpurmTraceNowNs()
+        self._t0 = _lib().tpurmTraceBegin() if native.loaded() else 0
         return self
 
     def __exit__(self, *exc) -> None:
-        _lib().tpurmTraceAppSpan(self._name, self._t0, self._obj,
-                                 self._bytes)
+        if self._t0:
+            _lib().tpurmTraceAppSpan(self._name, self._t0, self.obj,
+                                     self.nbytes)
 
 
 class _site_span:
@@ -222,9 +265,26 @@ class _site_span:
         _lib().tpurmTraceEnd(self._site, self._t0, self._obj, self.bytes)
 
 
+def clock_anchor() -> Tuple[int, int]:
+    """(CLOCK_MONOTONIC, CLOCK_REALTIME) ns at one moment: of five realtime
+    reads, each between two monotonic ones, the one whose monotonic pair
+    lies closest, with their midpoint."""
+    best = None
+    for _ in range(5):
+        a = time.clock_gettime_ns(time.CLOCK_MONOTONIC)
+        real = time.clock_gettime_ns(time.CLOCK_REALTIME)
+        b = time.clock_gettime_ns(time.CLOCK_MONOTONIC)
+        if best is None or b - a < best[0]:
+            best = (b - a, (a + b) // 2, real)
+    return best[1], best[2]
+
+
 def trace_start() -> None:
-    """Arm tracing (every engine site starts emitting spans)."""
+    """Arm tracing (every engine site starts emitting spans) and take the
+    export's first clock anchor."""
+    global _armed_anchor
     _lib().tpurmTraceStart()
+    _armed_anchor = clock_anchor()
 
 
 def trace_stop() -> None:
@@ -266,13 +326,24 @@ def trace_stats() -> Dict[str, int]:
 
 
 def trace_export_json() -> str:
-    """The Chrome trace-event JSON (Perfetto, chrome://tracing)."""
-    return _read(_lib().tpurmTraceExportJson, size=TRACE_EXPORT_BYTES)
+    """The Chrome trace-event JSON (Perfetto, chrome://tracing), in a
+    buffer sized for every record the rings hold (``trace_stats()``)."""
+    st = trace_stats()
+    held = max(st["recorded"] - st["dropped"], 0)
+    size = max(TRACE_EXPORT_BYTES,
+               held * TRACE_EVENT_BYTES + TRACE_EXPORT_TAIL)
+    return _read(_lib().tpurmTraceExportJson, size=size)
 
 
 def trace_export() -> dict:
-    """The Chrome trace-event export, parsed: {"traceEvents": [...]}."""
-    return json.loads(trace_export_json())
+    """The Chrome trace-event export, parsed: {"traceEvents": [...]}, and
+    under ``CLOCK_ANCHORS`` the clock anchors taken when tracing was armed
+    and now."""
+    doc = json.loads(trace_export_json())
+    doc[CLOCK_ANCHORS] = {
+        "armed": list(_armed_anchor) if _armed_anchor else None,
+        "exported": list(clock_anchor())}
+    return doc
 
 
 def trace_save(path: str) -> str:
@@ -284,9 +355,20 @@ def trace_save(path: str) -> str:
 
 
 def metrics_text() -> str:
-    """The Prometheus exposition (/proc/driver/tpurm/metrics body)."""
-    return _read(_lib().tpurmProcfsRead, b"/proc/driver/tpurm/metrics",
+    """The Prometheus exposition (/proc/driver/tpurm/metrics body), with
+    the port's own counters after the engine's ``tpurm_counter`` samples."""
+    text = _read(_lib().tpurmProcfsRead, b"/proc/driver/tpurm/metrics",
                  size=METRICS_BYTES)
+    with _port_lock:
+        own = [f'tpurm_counter{{name="{n}"}} {v}'
+               for n, v in sorted(_port_counters.items())]
+    if not own:
+        return text
+    lines = text.splitlines()
+    at = lines.index("# TYPE tpurm_counter counter") + 1
+    while at < len(lines) and lines[at].startswith("tpurm_counter{"):
+        at += 1
+    return "\n".join(lines[:at] + own + lines[at:]) + "\n"
 
 
 # ------------------------------------------------------------------ tpuflow

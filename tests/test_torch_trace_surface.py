@@ -9,8 +9,10 @@ recorded is read through both surfaces, with the JAX function as the
 reference: the event names of the export, the histogram quantiles, the
 Prometheus families, the procfs listing, the SLO and flow readouts.  One
 application span through each package must export the same event.  The
-metrics inventory is the JAX test's ``METRICS_INVENTORY``, imported, and the
-native ``check-metrics`` lint runs over the port's Python tree against it.
+port's metrics inventory is this module's ``METRICS_INVENTORY``: the JAX
+test's names and the counters only the port registers
+(``PORT_ONLY_COUNTERS``); the native ``check-metrics`` lint runs over the
+port's Python tree against it.
 """
 
 import json
@@ -26,13 +28,126 @@ from open_gpu_kernel_modules_tpu_torch import utils, uvm
 from open_gpu_kernel_modules_tpu_torch.uvm import ce as _ce
 from open_gpu_kernel_modules_tpu_torch.uvm import journal
 
-from test_trace_surface import METRICS_INVENTORY, _parse_prometheus
+import test_trace_surface as jax_surface
+from test_trace_surface import _parse_prometheus
 
 MB = 1 << 20
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT_PKG = os.path.join(REPO, "open_gpu_kernel_modules_tpu_torch")
 JAX_PKG = os.path.join(REPO, "open_gpu_kernel_modules_tpu")
+
+#: Python counters the port registers and the JAX package does not: the
+#: tier's read and flush accounting (``models/serving.py``), which the
+#: port keeps itself (``utils.port_counter_add``) and its benchmark reads.
+PORT_ONLY_COUNTERS = {"tputier_read_bytes", "tputier_read_ns",
+                      "tputier_flush_bytes", "tputier_flush_ns"}
+
+#: Every counter and exposition family the engine and the port register,
+#: by name, as the JAX test's inventory counts them, with
+#: ``PORT_ONLY_COUNTERS``.  Kept sorted and literal: the ``check-metrics``
+#: lint reads it from this file.
+METRICS_INVENTORY = [
+    "broker_client_deaths", "broker_heartbeat_reaps",
+    "broker_reclaimed_clients", "broker_reclaimed_fds",
+    "broker_reclaimed_pin_bytes", "broker_reclaimed_pins",
+    "broker_zombie_doorbells", "channel_bytes_copied",
+    "channel_copies_completed", "channel_pushes", "channel_rc_resets",
+    "cxl_buffers_registered", "cxl_buffers_unregistered", "cxl_dma_bytes",
+    "cxl_dma_requests", "dmabuf_exports", "hbm_mirror_bytes",
+    "hbm_mirror_overflows", "hbm_readback_requests", "hot_inject_skips",
+    "ib_mr_invalidations", "ib_mr_registrations", "ici_degraded_routes",
+    "ici_hop_bytes", "ici_link_flaps", "ici_links_trained",
+    "ici_multihop_copies", "ici_peer_apertures", "ici_peer_copy_bytes",
+    "ici_reset_retrains", "ici_retrain_failures", "ici_wire_crc_errors",
+    "journal_dump_errors", "journal_dump_io_errors", "journal_dumps",
+    "journal_log_mirrors", "memring_coalesced_sqes", "memring_cq_overflows",
+    "memring_cqes", "memring_deadline_expired", "memring_dep_cancelled",
+    "memring_dep_stalls", "memring_error_cqes", "memring_fences",
+    "memring_fused_evictions", "memring_inject_error_cqes",
+    "memring_inject_error_runs", "memring_inject_retries",
+    "memring_internal_inline", "memring_internal_sqes",
+    "memring_internal_submits", "memring_links_cancelled",
+    "memring_ooo_retires", "memring_ops", "memring_park_timeouts",
+    "memring_prod_contended", "memring_retries", "memring_rings_created",
+    "memring_shard_sqes", "memring_sqes", "memring_sqpoll_polls",
+    "memring_sqpoll_sleeps", "memring_stale_completions", "memring_steals",
+    "memring_submits", "memring_tier_evict_runs", "peermem_dma_maps",
+    "peermem_get_pages", "peermem_put_pages", "peermem_revocations",
+    "pmm_chunk_allocs", "pmm_chunk_frees", "rc_auto_resets",
+    "rc_device_escalations", "rc_nonreplayable_faults",
+    "rc_shadow_overflows", "rc_watchdog_timeouts", "rdma_mrs_revalidated",
+    "rdma_reset_revocations", "recover_copy_retries",
+    "recover_fault_retries", "recover_link_retrains",
+    "recover_msgq_retries", "recover_page_quarantines", "recover_rc_resets",
+    "recover_rdma_retries", "recover_retries", "recover_tier_fallbacks",
+    "rm_events_allocated", "rm_events_delivered", "rm_memory_maps",
+    "shield_crc_selftest_fallbacks", "shield_crc_selftests",
+    "shield_detected", "shield_inject_corrupts", "shield_inject_misses",
+    "shield_retire_overflow", "shield_retired_realloc",
+    "shield_wire_mismatches", "shield_wire_verifies",
+    "tier_hot_victim_reorders", "tier_lock_contended",
+    "tier_remote_demote_bytes", "tier_remote_demote_fails",
+    "tier_remote_demotes", "tier_remote_fence_aborts",
+    "tier_remote_headroom_refusals", "tier_remote_promote_bytes",
+    "tier_remote_promotes", "tier_remote_revokes", "tier_tenant_binds",
+    "tier_tenant_configs", "tier_tenant_evictions",
+    "tier_tenant_over_quota_evictions", "tier_tenant_slo_reorders",
+    "tpuce_compressed_bytes_in", "tpuce_compressed_bytes_out",
+    "tpuce_compressed_bytes_raw", "tpuce_deadline_expired",
+    "tpuce_dep_join_waits", "tpuce_inject_errors", "tpuce_inject_retries",
+    "tpuce_lossless_fallbacks", "tpuce_ooo_completions", "tpuce_retries",
+    "tpuce_stale_completions", "tpuce_stripe_errors", "tpuce_stripe_splits",
+    "tpurm_counter", "tpurm_cpu_pins", "tpurm_device_generation",
+    "tpurm_device_health", "tpurm_device_health_score", "tpurm_flow_drops",
+    "tpurm_flow_drops_total", "tpurm_flow_unmatched_total",
+    "tpurm_flows_closed", "tpurm_flows_closed_total", "tpurm_flows_open",
+    "tpurm_flows_opened", "tpurm_health_transitions",
+    "tpurm_hot_device_score", "tpurm_hot_pins", "tpurm_hot_prefetch_grown",
+    "tpurm_hot_prefetch_shrunk", "tpurm_hot_thrash_pages",
+    "tpurm_hot_throttle_delays", "tpurm_hot_throttles",
+    "tpurm_journal_capacity", "tpurm_journal_dropped",
+    "tpurm_journal_records", "tpurm_pages_retired", "tpurm_reset_failed",
+    "tpurm_reset_injected", "tpurm_reset_mttr_ns", "tpurm_reset_total",
+    "tpurm_scrub_hits", "tpurm_scrub_pages", "tpurm_scrub_ticks",
+    "tpurm_shield_mismatches", "tpurm_shield_pages_poisoned",
+    "tpurm_shield_pages_retired", "tpurm_shield_refetch_saves",
+    "tpurm_shield_seals", "tpurm_shield_verifies", "tpurm_slo_blame_ns",
+    "tpurm_tenant_pages", "tpurm_tenant_quota_pages",
+    "tpurm_tenant_rebinds", "tpurm_tier_remote_pages",
+    "tpurm_trace_dropped_total", "tpurm_trace_records_total",
+    "tpurm_trace_rings", "tpurm_watchdog_device_resets",
+    "tpurm_watchdog_evacuations", "tpurm_watchdog_nudges",
+    "tpurm_watchdog_rc_resets", "tpusched_admit_retries",
+    "tpusched_admit_sheds", "tpusched_admitted", "tpusched_cancelled",
+    "tpusched_decoded_tokens", "tpusched_device_resets",
+    "tpusched_evac_aborts", "tpusched_evacuations", "tpusched_evict_errors",
+    "tpusched_fused_evict_chains", "tpusched_poisoned_retired",
+    "tpusched_preempted", "tpusched_restored", "tpusched_retired",
+    "tpusched_round_errors", "tpusched_rounds",
+    "tpusched_seq_slots_retired", "tpusched_submitted",
+    "tpusplit_pages_shipped", "tpusplit_reclaims", "tpusplit_ship_aborts",
+    "tpusplit_ships", "tputier_flush_bytes", "tputier_flush_ns",
+    "tputier_read_bytes", "tputier_read_ns", "uvm_access_counter_demotions",
+    "uvm_access_counter_promotions", "uvm_accessed_by_mappings",
+    "uvm_ats_accesses", "uvm_ats_bytes", "uvm_block_evictions",
+    "uvm_bytes_xfer_dth", "uvm_bytes_xfer_htd", "uvm_compressible_advises",
+    "uvm_cpu_fault_count", "uvm_device_wrote_invalidations",
+    "uvm_external_maps", "uvm_fault_batches", "uvm_fault_cancels",
+    "uvm_fault_drain_park_bails", "uvm_fault_flush_serviced",
+    "uvm_first_touch_writes", "uvm_gpu_fault_count", "uvm_hmm_adoptions",
+    "uvm_managed_bytes_allocated", "uvm_migrate_calls",
+    "uvm_mmu_pte_batches", "uvm_mmu_tlb_invalidates", "uvm_mmu_tlb_pages",
+    "uvm_prefetch_hits", "uvm_prefetch_pages", "uvm_prefetch_useless",
+    "uvm_range_splits", "uvm_resumes", "uvm_suspends",
+    "uvm_tools_events_dropped", "uvm_va_spaces_created",
+    "uvm_write_faults_inferred", "vac_aborts", "vac_acks",
+    "vac_bytes_moved", "vac_commit_ns", "vac_commit_rejected",
+    "vac_commits", "vac_crc_mismatches", "vac_crc_reships",
+    "vac_crc_verifies", "vac_failed_acks", "vac_grace_expired",
+    "vac_inject_aborts", "vac_inject_retries", "vac_operator_requests",
+    "vac_pages_moved", "vac_requests", "vac_txn_begins",
+]
 
 
 @pytest.fixture
@@ -200,7 +315,7 @@ def _check_metrics(py_dir, extra=None):
         env["CHECK_METRICS_EXTRA"] = extra
     return subprocess.run(
         ["sh", "scripts/check_metrics.sh", "src", py_dir,
-         os.path.join(REPO, "tests", "test_trace_surface.py")],
+         os.path.abspath(__file__)],
         cwd=os.path.join(REPO, "native"), env=env, capture_output=True,
         text=True, timeout=120)
 
@@ -219,12 +334,40 @@ def _python_counters(pkg_dir):
 
 def test_check_metrics_lint_passes():
     """Every counter the port registers (native and Python) is in the
-    inventory, and the port registers the JAX package's Python counters,
-    no more, no fewer."""
+    inventory, and the port registers the JAX package's Python counters
+    and its own ``PORT_ONLY_COUNTERS``, no more, no fewer."""
     proc = _check_metrics(PORT_PKG)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "check-metrics OK" in proc.stdout
-    assert _python_counters(PORT_PKG) == _python_counters(JAX_PKG)
+    assert _python_counters(PORT_PKG) == \
+        _python_counters(JAX_PKG) | PORT_ONLY_COUNTERS
+    assert not PORT_ONLY_COUNTERS & _python_counters(JAX_PKG)
+
+
+def test_port_inventory_is_jaxs_and_the_ports_own():
+    """The port's inventory is the JAX test's with ``PORT_ONLY_COUNTERS``
+    added, sorted, so the two stay one list apart."""
+    assert METRICS_INVENTORY == sorted(METRICS_INVENTORY)
+    assert set(METRICS_INVENTORY) == \
+        set(jax_surface.METRICS_INVENTORY) | PORT_ONLY_COUNTERS
+    assert not PORT_ONLY_COUNTERS & set(jax_surface.METRICS_INVENTORY)
+
+
+def test_port_counters_in_exposition():
+    """The port's own counters are samples of the ``tpurm_counter`` family
+    in the port's exposition, read by ``counter``, and absent from the
+    engine's registry and so from the JAX package's exposition."""
+    name = "tputier_read_ns"
+    utils.port_counter_add(name, 3)
+    n = utils.counter(name)
+    assert n >= 3
+    types, samples = _parse_prometheus(utils.metrics_text())
+    assert types["tpurm_counter"] == "counter"
+    assert ("tpurm_counter", f'tpurm_counter{{name="{name}"}}',
+            float(n)) in samples
+    _, jsamples = _parse_prometheus(jutils.metrics_text())
+    assert not [m for _, m, _ in jsamples if f'"{name}"' in m]
+    assert jutils.counter(name) == 0
 
 
 def test_check_metrics_lint_negative():
@@ -350,6 +493,13 @@ def _export_events(text):
     return events
 
 
+def _engine_lines(text):
+    """An exposition without the samples of the port's own counters
+    (``PORT_ONLY_COUNTERS``), which the JAX package does not keep."""
+    own = tuple(f'tpurm_counter{{name="{n}"}} ' for n in PORT_ONLY_COUNTERS)
+    return [line for line in text.splitlines() if not line.startswith(own)]
+
+
 def _readers(mod, jour, tmp):
     """Each text reader of ``utils`` and ``journal``, by name."""
     def saved():
@@ -364,7 +514,7 @@ def _readers(mod, jour, tmp):
         "trace_export": lambda: [e["name"] for e in
                                  mod.trace_export()["traceEvents"]],
         "trace_save": saved,
-        "metrics_text": mod.metrics_text,
+        "metrics_text": lambda: _engine_lines(mod.metrics_text()),
         "journal.text": jour.text,
     }
 
